@@ -1,0 +1,169 @@
+"""Alignment layer: flags and match records.
+
+The scalar kernels live in :mod:`atropos_tpu_torch.align.oracle` (the executable
+spec), the batched plain PyTorch DP in :mod:`atropos_tpu_torch.align.batched`
+and the CUDA kernels in :mod:`atropos_tpu_torch.align.cuda_kernel`. This
+package re-exports the scalar API under the same names the rest of the
+framework uses, mirroring the reference layering
+(``atropos/align/__init__.py``). The paired-end ``InsertAligner`` of
+``atropos_tpu/align/__init__.py`` has no counterpart here yet.
+"""
+from collections import namedtuple
+
+from atropos_tpu_torch.align.flags import (  # noqa: F401
+    SEMIGLOBAL,
+    START_WITHIN_SEQ1,
+    START_WITHIN_SEQ2,
+    STOP_WITHIN_SEQ1,
+    STOP_WITHIN_SEQ2,
+)
+from atropos_tpu_torch.align.oracle import (  # noqa: F401
+    Aligner,
+    compare_prefixes,
+    compare_suffixes,
+    locate,
+)
+
+
+class Match:
+    """An alignment match binding coordinates to an adapter and read.
+
+    Coordinates: ``(astart, astop)`` within the adapter, ``(rstart, rstop)``
+    within the read; ``matches``/``errors`` counted over the aligned region.
+    Field semantics match the reference (``atropos/align/__init__.py:51``).
+    """
+
+    __slots__ = [
+        "astart",
+        "astop",
+        "rstart",
+        "rstop",
+        "matches",
+        "errors",
+        "front",
+        "adapter",
+        "read",
+        "length",
+    ]
+
+    def __init__(
+        self,
+        astart,
+        astop,
+        rstart,
+        rstop,
+        matches,
+        errors,
+        front=None,
+        adapter=None,
+        read=None,
+    ):
+        self.astart = astart
+        self.astop = astop
+        self.rstart = rstart
+        self.rstop = rstop
+        self.matches = matches
+        self.errors = errors
+        self.front = self._guess_is_front() if front is None else front
+        self.adapter = adapter
+        self.read = read
+        self.length = self.astop - self.astart
+        if self.length <= 0:
+            raise ValueError("Match length must be >= 0")
+        if self.length - self.errors <= 0:
+            raise ValueError("A Match requires at least one matching position.")
+
+    def __repr__(self):
+        return (
+            "Match(astart={0}, astop={1}, rstart={2}, rstop={3}, matches={4}, "
+            "errors={5})"
+        ).format(
+            self.astart, self.astop, self.rstart, self.rstop, self.matches,
+            self.errors,
+        )
+
+    def copy(self):
+        return Match(
+            self.astart,
+            self.astop,
+            self.rstart,
+            self.rstop,
+            self.matches,
+            self.errors,
+            self.front,
+            self.adapter,
+            self.read,
+        )
+
+    def _guess_is_front(self):
+        return self.rstart == 0
+
+    def wildcards(self, wildcard_char="N"):
+        """Characters of the read matched by wildcard positions in the
+        adapter (unreliable in the presence of indels)."""
+        wildcards = [
+            self.read.sequence[self.rstart + i]
+            for i in range(self.length)
+            if (
+                self.adapter.sequence[self.astart + i] == wildcard_char
+                and self.rstart + i < len(self.read.sequence)
+            )
+        ]
+        return "".join(wildcards)
+
+    def rest(self):
+        """Portion of the read before a front match / after a back match."""
+        if self.front:
+            return self.read.sequence[: self.rstart]
+        return self.read.sequence[self.rstop :]
+
+    def get_info_record(self):
+        """MatchInfo for ``--info-file`` output."""
+        seq = self.read.sequence
+        qualities = self.read.qualities
+        if qualities is None:
+            qualities = ""
+        rsize = rsize_total = self.rstop - self.rstart
+        if self.front and self.rstart > 0:
+            rsize_total = self.rstop
+        elif not self.front and self.rstop < len(seq):
+            rsize_total = len(seq) - self.rstart
+        return MatchInfo(
+            self.read.name,
+            self.errors,
+            self.rstart,
+            self.rstop,
+            seq[0 : self.rstart],
+            seq[self.rstart : self.rstop],
+            seq[self.rstop :],
+            self.adapter.name,
+            qualities[0 : self.rstart],
+            qualities[self.rstart : self.rstop],
+            qualities[self.rstop :],
+            self.front,
+            self.astop - self.astart,
+            rsize,
+            rsize_total,
+        )
+
+
+MatchInfo = namedtuple(
+    "MatchInfo",
+    (
+        "read_name",
+        "errors",
+        "rstart",
+        "rstop",
+        "seq_before",
+        "seq_adapter",
+        "seq_after",
+        "adapter_name",
+        "qual_before",
+        "qual_adapter",
+        "qual_after",
+        "is_front",
+        "asize",
+        "rsize_adapter",
+        "rsize_total",
+    ),
+)

@@ -1,0 +1,255 @@
+"""CUDA kernels for the batched semi-global adapter DP, and their wrappers.
+
+Counterpart of ``atropos_tpu/align/pallas_kernel.py::PallasAligner``. The
+two Pallas DP kernels each have a hand-written Hopper kernel in
+``csrc/dp_align.cu`` (see the note at its top for what bounds them and
+what the design does about it):
+
+=====================  ==========================================  =========
+wrapper                replaces                                    cell word
+=====================  ==========================================  =========
+``dp_locate_word32``   ``pallas_kernel.py::_dp_kernel_fused``      32 bits
+``dp_locate_wide``     ``pallas_kernel.py::_dp_kernel``            64 bits
+=====================  ==========================================  =========
+
+Each wrapper checks its arguments, allocates the ``[8, B]`` output,
+launches its kernel on PyTorch's current stream without synchronizing,
+raises when the launch is refused, and counts its launches in a plain
+integer ``launches``. Given CPU tensors — and only then — a wrapper runs
+its plain PyTorch version (``dp_locate_word32_plain`` /
+``dp_locate_wide_plain``, both :func:`~atropos_tpu_torch.align.batched.
+_locate_kernel`); on CUDA tensors it launches the kernel or raises.
+
+:class:`CudaAligner` is the ``nn.Module`` that holds one adapter's compiled
+parameters on its device and picks the wrapper: the 32-bit word where the
+cell's fields fit it, the 64-bit word otherwise.
+"""
+import ctypes
+
+import torch
+
+from atropos_tpu_torch.align import _build
+from atropos_tpu_torch.align.batched import BatchAligner, _locate_kernel
+
+#: integer operations of one cell update (one iteration of the row loop of
+#: ``dp_body`` in csrc/dp_align.cu, counted in the note at its top)
+OPS_PER_CELL = 24
+
+#: dynamic shared memory a block may have on sm_90
+MAX_SHARED_BYTES = 232448
+
+#: threads of a block: 64 gives a batch of 32768 reads 512 blocks to spread
+#: over the card's 132 SMs; halved (down to one warp) for adapters whose
+#: cell column does not fit the shared memory of a wider block
+THREADS_PER_BLOCK = 64
+
+_LIB_NAME = "dp_align"
+
+
+def _bits(x):
+    """Number of bits needed to represent values 0..x."""
+    return max(1, int(x).bit_length())
+
+
+def cell_layout(m, k, L, word_bits):
+    """Field widths ``(mat_bits, org_bits)`` of the packed DP cell
+
+        cell = cost << (mat_bits + org_bits) | (origin + m) << mat_bits | matches
+
+    for an adapter of ``m`` bases with ``k`` allowed errors against reads
+    of up to ``L`` bases, or None when the fields do not fit ``word_bits``.
+    Costs are saturated at ``k + 1`` (a cell above ``k`` is dead for good
+    and only that property is ever read), origins range over ``[-m, L]``
+    and matches over ``[0, m]``.
+    """
+    mat_bits = _bits(m)
+    org_bits = _bits(L + m)
+    if mat_bits + org_bits + _bits(k + 1) > word_bits:
+        return None
+    return mat_bits, org_bits
+
+
+def _lib():
+    lib = _build.load(_LIB_NAME)
+    if not getattr(lib, "_atropos_bound", False):
+        argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+        )
+        for name in ("dp_locate_word32", "dp_locate_wide"):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib._atropos_bound = True
+    return lib
+
+
+def _check_inputs(reads_T, lengths_row, ref_bytes, thresholds, m):
+    if reads_T.dim() != 2 or reads_T.dtype != torch.uint8:
+        raise TypeError("reads_T must be a [L, B] uint8 tensor")
+    if not reads_T.is_contiguous():
+        raise ValueError("reads_T must be contiguous ([L, B], B minor)")
+    L, B = reads_T.shape
+    if lengths_row.dtype != torch.int32 or lengths_row.numel() != B:
+        raise TypeError("lengths_row must hold B int32 lengths")
+    if not lengths_row.is_contiguous():
+        raise ValueError("lengths_row must be contiguous")
+    if ref_bytes.dtype != torch.uint8 or tuple(ref_bytes.shape) != (m,):
+        raise TypeError("ref_bytes must be a [m] uint8 tensor")
+    if thresholds.dtype != torch.int32 or tuple(thresholds.shape) != (m + 1,):
+        raise TypeError("thresholds must be a [m + 1] int32 tensor")
+    if not (ref_bytes.is_contiguous() and thresholds.is_contiguous()):
+        raise ValueError("ref_bytes and thresholds must be contiguous")
+    for name, tensor in (
+        ("lengths_row", lengths_row),
+        ("ref_bytes", ref_bytes),
+        ("thresholds", thresholds),
+    ):
+        if tensor.device != reads_T.device:
+            raise ValueError(
+                "{} is on {}, reads_T on {}".format(
+                    name, tensor.device, reads_T.device
+                )
+            )
+    return L, B
+
+
+class _DpKernel:
+    """Wrapper of one exported DP kernel (see the module docstring)."""
+
+    def __init__(self, name, word_bits, replaces):
+        self.name = name
+        self.word_bits = word_bits
+        self.replaces = replaces
+        #: kernel launches made through this wrapper
+        self.launches = 0
+
+    def fits(self, m, k, L):
+        """Whether this kernel's cell word holds the fields of (m, k, L)."""
+        return cell_layout(m, k, L, self.word_bits) is not None
+
+    def shared_bytes(self, m, threads):
+        return (self.word_bits // 8) * (m + 1) * threads + 4 * (m + 1) + m
+
+    def plain(self, reads_T, lengths_row, ref_bytes, thresholds, **params):
+        """The plain PyTorch version of this kernel, on any device."""
+        m = params["m"]
+        L, _ = _check_inputs(reads_T, lengths_row, ref_bytes, thresholds, m)
+        if not self.fits(m, params["k"], L):
+            raise ValueError(
+                "{}: the cell of (m={}, k={}, L={}) does not fit {} bits".format(
+                    self.name, m, params["k"], L, self.word_bits
+                )
+            )
+        return _locate_kernel(
+            reads_T, lengths_row, ref_bytes, thresholds, **params
+        )
+
+    def __call__(self, reads_T, lengths_row, ref_bytes, thresholds, *, m, k,
+                 flags, min_overlap, ins_cost, del_cost, compare_ascii):
+        """``reads_T`` [L, B] uint8, ``lengths_row`` [1, B] int32,
+        ``ref_bytes`` [m] uint8, ``thresholds`` [m + 1] int32, on one
+        device -> [8, B] int32 (found, start1, stop1, start2, stop2,
+        matches, cost, 0). CUDA tensors launch the kernel; CPU tensors
+        run the plain version."""
+        params = dict(
+            m=m, k=k, flags=flags, min_overlap=min_overlap,
+            ins_cost=ins_cost, del_cost=del_cost, compare_ascii=compare_ascii,
+        )
+        if not reads_T.is_cuda:
+            return self.plain(
+                reads_T, lengths_row, ref_bytes, thresholds, **params
+            )
+        L, B = _check_inputs(reads_T, lengths_row, ref_bytes, thresholds, m)
+        if B % 32:
+            raise ValueError(
+                "batch width {} is not a multiple of the warp width 32".format(B)
+            )
+        layout = cell_layout(m, k, L, self.word_bits)
+        if layout is None:
+            raise ValueError(
+                "{}: the cell of (m={}, k={}, L={}) does not fit {} bits".format(
+                    self.name, m, k, L, self.word_bits
+                )
+            )
+        threads = THREADS_PER_BLOCK
+        while threads > 32 and self.shared_bytes(m, threads) > MAX_SHARED_BYTES:
+            threads //= 2
+        if self.shared_bytes(m, threads) > MAX_SHARED_BYTES:
+            raise ValueError(
+                "{}: an adapter of {} bases needs {} bytes of shared memory "
+                "for a block of 32 threads, more than the {} a block may "
+                "have".format(
+                    self.name, m, self.shared_bytes(m, 32), MAX_SHARED_BYTES
+                )
+            )
+        out = torch.empty((8, B), dtype=torch.int32, device=reads_T.device)
+        with torch.cuda.device(reads_T.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = getattr(_lib(), self.name)(
+                reads_T.data_ptr(), lengths_row.data_ptr(), out.data_ptr(),
+                ref_bytes.data_ptr(), thresholds.data_ptr(),
+                L, B, m, k, flags, min_overlap, ins_cost, del_cost,
+                int(bool(compare_ascii)), layout[0], layout[1], threads,
+                stream,
+            )
+        if rc != 0:
+            raise RuntimeError(
+                "{}: kernel launch refused (CUDA error {})".format(self.name, rc)
+            )
+        self.launches += 1
+        return out
+
+
+dp_locate_word32 = _DpKernel(
+    "dp_locate_word32", 32,
+    "atropos_tpu/align/pallas_kernel.py:177 (_dp_kernel_fused)",
+)
+dp_locate_wide = _DpKernel(
+    "dp_locate_wide", 64,
+    "atropos_tpu/align/pallas_kernel.py:439 (_dp_kernel)",
+)
+dp_locate_word32_plain = dp_locate_word32.plain
+dp_locate_wide_plain = dp_locate_wide.plain
+
+KERNELS = (dp_locate_word32, dp_locate_wide)
+
+
+def reset_launch_counts():
+    for kernel in KERNELS:
+        kernel.launches = 0
+
+
+def launch_counts():
+    return {kernel.name: kernel.launches for kernel in KERNELS}
+
+
+class CudaAligner(BatchAligner):
+    """CUDA-kernel counterpart of :class:`BatchAligner` (same result
+    contract, same bit-exact semantics). ``forward`` goes through
+    :data:`dp_locate_word32` when the cell of (m, k, L) fits a 32-bit
+    word and through :data:`dp_locate_wide` otherwise."""
+
+    def kernel_for(self, L):
+        return dp_locate_word32 if dp_locate_word32.fits(self.m, self.k, L) else dp_locate_wide
+
+    def forward(self, reads_T, lengths_row):
+        return self.kernel_for(reads_T.shape[0])(
+            reads_T, lengths_row, self.ref_bytes, self.thresholds,
+            **self._dp_params(),
+        )
+
+
+def aligner_from_numpy(ref_bytes, thresholds, query_lut, *, m, k, flags,
+                       min_overlap, indel_cost, compare_ascii, device):
+    """An aligner on ``device`` from one adapter's compiled parameters as
+    numpy arrays (the reference bytes as compared, the float64-derived
+    threshold table and the 256-entry query translation table): a
+    :class:`CudaAligner` for a CUDA device, a :class:`BatchAligner` for
+    ``cpu``. Both sides of a comparison can so compute from the same
+    tables."""
+    cls = CudaAligner if torch.device(device).type == "cuda" else BatchAligner
+    return cls.from_tables(
+        ref_bytes, thresholds, query_lut, m=m, k=k, flags=flags,
+        min_overlap=min_overlap, indel_cost=indel_cost,
+        compare_ascii=compare_ascii, device=device,
+    )

@@ -1,0 +1,77 @@
+"""The 'trim' command: adapter/quality trimming.
+
+The stack is assembled by :mod:`~atropos_tpu_torch.commands.trim.builder`
+and executed by the turbo runner (:mod:`atropos_tpu_torch.engine.turbo`):
+streaming native parse -> one device step per batch -> native format, for
+single-end interval-expressible configurations. Counterpart of
+``atropos_tpu/commands/trim/__init__.py``; the engine, serial, parallel
+and multi-host modes of that module are not part of this package and
+raise :class:`~atropos_tpu_torch.NotPortedError`.
+"""
+import logging
+
+from atropos_tpu_torch import NotPortedError
+from atropos_tpu_torch.commands.base import BaseCommandRunner
+from atropos_tpu_torch.commands.trim.builder import TrimStackBuilder
+from atropos_tpu_torch.commands.trim.pipeline import (  # noqa: F401
+    RecordHandler,
+    TrimSummary,
+)
+
+
+def check_ported(options):
+    """Raise :class:`NotPortedError` for every option that selects a
+    path outside the single-end turbo slice. Runs before the input is
+    opened, so nothing is read or written for such a request."""
+    if options.paired or options.input2 or options.interleaved_input:
+        raise NotPortedError("paired-end trimming", "paired")
+    if getattr(options, "aligner", "adapter") == "insert":
+        raise NotPortedError("the insert aligner", "insert")
+    if options.colorspace:
+        raise NotPortedError("colorspace trimming", "engine")
+    if options.threads is not None:
+        raise NotPortedError("--threads", "multi-gpu")
+    if options.stats:
+        raise NotPortedError("--stats", "side-files")
+    if options.info_file or options.rest_file or options.wildcard_file:
+        raise NotPortedError(
+            "info/rest/wildcard side files", "side-files"
+        )
+    if options.output and "{name}" in str(options.output):
+        raise NotPortedError("demultiplexed output", "side-files")
+    if options.overwrite_low_quality:
+        raise NotPortedError("-w (overwrite low quality)", "side-files")
+
+
+class CommandRunner(BaseCommandRunner):
+    name = "trim"
+
+    def __init__(self, options):
+        check_ported(options)
+        super().__init__(options, TrimSummary)
+
+    def __call__(self):
+        options = self.options
+        logger = logging.getLogger()
+
+        modifiers, filters, formatters, writers = TrimStackBuilder(self).build()
+        record_handler = RecordHandler(modifiers, filters, formatters)
+
+        num_adapters = sum(len(a) for a in modifiers.get_adapters())
+        logger.info(
+            "Trimming %s adapter%s with at most %.1f%% errors in single-end "
+            "mode ...",
+            num_adapters,
+            "s" if num_adapters > 1 else "",
+            options.error_rate * 100,
+        )
+
+        from atropos_tpu_torch.engine.turbo import TurboTrimRunner
+
+        # build() returns the runner or raises NotPortedError with the
+        # reason the turbo runner of atropos_tpu would decline for
+        turbo = TurboTrimRunner.build(
+            self, record_handler, writers, device=options.device
+        )
+        self.summary.update(mode="turbo", threads=1)
+        return turbo.run()

@@ -34,6 +34,13 @@ import pytest
 _ENGINE_PARAMETRIZED_MODULES = ("test_trim_se", "test_trim_pe")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card; skips with its reason where there is none",
+    )
+
+
 def pytest_generate_tests(metafunc):
     module = metafunc.module.__name__.rsplit(".", 1)[-1]
     if (
