@@ -11,11 +11,11 @@ compute. Output bytes and summaries are identical to ``atropos_tpu``.
 Modules carry the names of their ``atropos_tpu`` counterparts:
 
 - ``atropos_tpu_torch.util``      — host-side primitives (merge algebra, RMP, ...)
-- ``atropos_tpu_torch.align``     — NumPy oracle, plain PyTorch DP, CUDA DP kernels
+- ``atropos_tpu_torch.align``     — NumPy oracle, plain PyTorch versions, CUDA kernels (DP, diagonal counts)
 - ``atropos_tpu_torch.io``        — sequence I/O (FASTA/FASTQ)
 - ``atropos_tpu_torch.adapters``  — adapter parsing/matching/caching
 - ``atropos_tpu_torch.runtime``   — native FASTQ/FASTA parser, packer, formatter
-- ``atropos_tpu_torch.engine``    — the turbo single-end runner and its device step
+- ``atropos_tpu_torch.engine``    — the turbo single-end and paired-end runners and their device steps
 - ``atropos_tpu_torch.commands``  — the trim command, CLI, reports
 
 The package imports ``torch`` and ``numpy`` only. Every entry point takes
@@ -35,11 +35,6 @@ class AtroposError(Exception):
 #: what is still to be ported, keyed by a short topic name; the values
 #: name the ROADMAP.md queue item that will bring it
 ROADMAP_ITEMS = {
-    "paired": "queue 1 item 1 (paired-end adapter lanes, TurboPairedRunner)",
-    "insert": (
-        "queue 1 item 2 (paired-end insert aligner, diagonal matcher "
-        "kernels, insert_candidate_slots)"
-    ),
     "side-files": (
         "queue 1 item 3 (info/rest/wildcard side files, --stats, "
         "demultiplexing, -w overwrite)"
@@ -52,6 +47,10 @@ ROADMAP_ITEMS = {
     "commands": "queue 1 item 6 (qc, detect and error commands, device counts)",
     "multi-gpu": (
         "queue 1 item 7 (multi-GPU, multi-host and --threads execution)"
+    ),
+    "insert-correct": (
+        "queue 1 item 11 (--correct-mismatches with the insert aligner: "
+        "overlap error correction of read pairs)"
     ),
 }
 

@@ -1,12 +1,14 @@
-"""Alignment layer: flags and match records.
+"""Alignment layer: flags, match records and the insert aligner's parameters.
 
 The scalar kernels live in :mod:`atropos_tpu_torch.align.oracle` (the executable
 spec), the batched plain PyTorch DP in :mod:`atropos_tpu_torch.align.batched`
 and the CUDA kernels in :mod:`atropos_tpu_torch.align.cuda_kernel`. This
 package re-exports the scalar API under the same names the rest of the
 framework uses, mirroring the reference layering
-(``atropos/align/__init__.py``). The paired-end ``InsertAligner`` of
-``atropos_tpu/align/__init__.py`` has no counterpart here yet.
+(``atropos/align/__init__.py``). The paired-end :class:`InsertAligner`
+holds the insert matcher's parameters and its random-match probability;
+the turbo paired runner does the matching itself, over whole batches
+(:class:`~atropos_tpu_torch.engine.turbo._InsertPair`).
 """
 from collections import namedtuple
 
@@ -23,6 +25,7 @@ from atropos_tpu_torch.align.oracle import (  # noqa: F401
     compare_suffixes,
     locate,
 )
+from atropos_tpu_torch.util import RandomMatchProbability
 
 
 class Match:
@@ -167,3 +170,49 @@ MatchInfo = namedtuple(
         "rsize_total",
     ),
 )
+
+
+class InsertAligner:
+    """Parameters of the paired-end insert matcher.
+
+    Counterpart of ``atropos_tpu/align/__init__.py::InsertAligner`` without
+    its per-pair ``match_insert``: the turbo paired runner aligns read1
+    against reverse-complemented read2 for a whole batch on the device
+    (the diagonal-count kernels of
+    :mod:`atropos_tpu_torch.align.insert_kernel`) and makes every decision
+    of ``match_insert`` vectorized on the host from these parameters, with
+    the same thresholds, the same order and the same float64
+    random-match probability (:class:`RandomMatchProbability`).
+    """
+
+    def __init__(
+        self,
+        adapter1,
+        adapter2,
+        match_probability=None,
+        insert_max_rmp=1e-6,
+        adapter_max_rmp=0.001,
+        min_insert_overlap=1,
+        max_insert_mismatch_frac=0.2,
+        min_adapter_overlap=1,
+        max_adapter_mismatch_frac=0.2,
+        adapter_check_cutoff=9,
+        base_probs=None,
+        adapter_wildcards=True,
+        read_wildcards=False,
+    ):
+        self.adapter1 = adapter1
+        self.adapter1_len = len(adapter1)
+        self.adapter2 = adapter2
+        self.adapter2_len = len(adapter2)
+        self.match_probability = match_probability or RandomMatchProbability()
+        self.insert_max_rmp = insert_max_rmp
+        self.adapter_max_rmp = adapter_max_rmp
+        self.min_insert_overlap = min_insert_overlap
+        self.max_insert_mismatch_frac = float(max_insert_mismatch_frac)
+        self.min_adapter_overlap = min_adapter_overlap
+        self.max_adapter_mismatch_frac = float(max_adapter_mismatch_frac)
+        self.adapter_check_cutoff = adapter_check_cutoff
+        self.base_probs = base_probs or dict(match_prob=0.25, mismatch_prob=0.75)
+        self.adapter_wildcards = adapter_wildcards
+        self.read_wildcards = read_wildcards

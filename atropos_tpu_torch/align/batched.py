@@ -453,3 +453,258 @@ class BatchAligner(nn.Module):
         res = {name: out[i] for i, name in enumerate(RESULT_ROWS)}
         res["found"] = res["found"].astype(bool)
         return res
+
+
+# ---------------------------------------------------------------------------
+# Batched insert-overlap matcher (variable-length, diagonal closed form)
+# ---------------------------------------------------------------------------
+
+
+def _diagonal_match_counts(refs_T, queries_T, lengths_row):
+    """Per-diagonal match counts for the no-indel insert configuration.
+
+    ``refs_T``/``queries_T``: [W, B] byte planes (pair-wise truncated to
+    the same per-pair length m_b; any integer type), ``lengths_row``: [1, B]
+    or [B] integers, all on one device. Returns [W, B] int32 where row s is
+    the number of matching positions of the alignment that starts at ref
+    offset s: ``sum_t [ref[(s+t) mod W] == query[t]]`` over
+    ``t < min(W, m_b - s)`` (the reference rotates the ref plane, so an
+    m_b above W wraps around; real inputs have m_b <= W).
+
+    This is the plain version of both diagonal-count kernels of
+    :mod:`atropos_tpu_torch.align.insert_kernel`: without indels every DP
+    path is a diagonal, so the whole no-indel MultiAligner collapses to W
+    shifted compares.
+    """
+    W, B = queries_T.shape
+    rows = torch.arange(W, device=queries_T.device, dtype=torch.int64)[:, None]
+    lens = lengths_row.reshape(1, -1).to(torch.int64)
+    counts = torch.empty((W, B), dtype=torch.int32, device=queries_T.device)
+    ref_cur = refs_T
+    for s in range(W):
+        eq = (ref_cur == queries_T) & (rows < (lens - s))
+        counts[s] = eq.sum(dim=0, dtype=torch.int32)
+        ref_cur = torch.roll(ref_cur, -1, dims=0)
+    return counts
+
+
+#: candidate slots carried per pair in the fused-step bundle (typical pairs
+#: emit 0-3 candidates); pairs with more candidates are reconstructed on
+#: the host from recomputed counts (``SLOT_OVERFLOWS``)
+INSERT_CANDIDATE_SLOTS = 8
+
+
+def insert_step_table(err, W):
+    """``tab[s] = floor(s * err)`` for s in [0, W], computed on the host
+    with Python doubles (the float admissibility check ``cost <= size *
+    err`` of the scalar aligner as an exact integer threshold): int32 [W+1].
+    A table for a larger W holds the one for a smaller W as its prefix."""
+    return np.array([int(np.floor(s * err)) for s in range(W + 1)], np.int32)
+
+
+def insert_candidate_slots(
+    counts, m_col, ref_plane, query_plane, step_table, min_overlap,
+    max_matches, n_slots=INSERT_CANDIDATE_SLOTS,
+):
+    """Torch ops twin of :meth:`BatchInsertMatcher.candidate_arrays`
+    emitting a fixed-size bundle format instead of the full counts plane
+    (counterpart of ``atropos_tpu/align/batched.py::insert_candidate_slots``).
+
+    ``counts`` [W, B] (any integer type), ``m_col`` [B] int32 per-pair
+    lengths, ``ref_plane``/``query_plane`` [B, w] byte planes,
+    ``step_table`` an int32 tensor of at least W + 1 entries from
+    :func:`insert_step_table` (never recomputed here), all on one device.
+    Returns:
+
+    - ``slots`` [n_slots, B] int32: candidate c in stream order (s
+      descending), packed ``(s+1) | count << 8`` biased by -32768 to survive
+      the int16 bundle; 0-slot = no candidate.
+    - ``meta`` [3, B] int32: [n_cand; final_s + 512*final_ok; final_count].
+
+    Requires W <= 255 (s and counts fit a byte). Pairs with ``n_cand >
+    n_slots`` must be reconstructed on the host.
+    """
+    W, B = counts.shape
+    dev = counts.device
+    i32 = torch.int32
+    counts = counts.to(i32)
+    tab = step_table[: W + 1].to(i32)
+
+    def thresh_of(length):
+        return tab[length.clamp(0, W).long()]
+
+    s_idx = torch.arange(W, dtype=i32, device=dev)[:, None]
+    m_row = m_col.to(i32)[None, :]
+    size = m_row - s_idx
+    in_range = size > 0
+    cost = torch.where(in_range, size - counts, torch.zeros_like(size))
+    k_col = thresh_of(m_row)
+
+    # bottom-row mismatch of each diagonal
+    w_r = ref_plane.shape[1]
+    last_idx = (m_col.long() - 1).clamp(0, w_r - 1)[:, None]
+    last_ref = ref_plane.gather(1, last_idx)  # [B, 1]
+    q_idx = (
+        m_col.long()[:, None] - 1 - torch.arange(W, device=dev)[None, :]
+    ).clamp(0, query_plane.shape[1] - 1)
+    q_last = query_plane.gather(1, q_idx)  # [B, W]
+    mm_last = (q_last.T != last_ref[:, 0][None, :]).to(i32)
+
+    alive_bot = in_range & (cost <= k_col)
+    alive_bot_ext = alive_bot | ~in_range
+    alive_m1 = in_range & ((cost - mm_last) <= k_col)
+    reach = torch.cat(
+        [alive_bot_ext[1:], torch.ones((1, B), dtype=torch.bool, device=dev)]
+    )
+    reach = (reach | alive_m1) & in_range
+    rec = (
+        reach
+        & alive_bot
+        & (size >= min_overlap)
+        & (cost <= thresh_of(size))
+    )
+    rec_i = rec.to(i32)
+    prefix_incl = torch.cumsum(rec_i, dim=0, dtype=i32)
+    total = prefix_incl[-1:]
+    rank = total - prefix_incl
+    exact = rec[0:1] & (cost[0:1] == 0) & (rank[0:1] < max_matches)
+    kept = rec & (rank < max_matches)
+    cand = torch.where(exact, (s_idx == 0) & rec, kept)
+    rank = torch.where(exact, torch.zeros_like(rank), rank)
+    n_cand = cand.to(i32).sum(dim=0, dtype=i32)
+
+    minus1 = torch.full_like(counts, -1)
+    zero = torch.zeros_like(counts)
+    slot_rows = []
+    for c in range(n_slots):
+        pick = cand & (rank == c)
+        s_c = torch.where(pick, s_idx.expand(W, B), minus1).amax(dim=0)
+        cnt_c = torch.where(pick, counts, zero).amax(dim=0)
+        val = torch.where(
+            s_c >= 0, (s_c + 1) | (cnt_c << 8), torch.zeros_like(s_c)
+        ) - 32768
+        slot_rows.append(val)
+    slots = torch.stack(slot_rows)
+
+    broke = exact[0] | (total[0] >= max_matches)
+    any_reach = reach.any(dim=0)
+    first_reach = reach.to(torch.uint8).argmax(dim=0).to(i32)
+    s_f = torch.where(any_reach, first_reach, (m_col.to(i32) - 1).clamp(min=0))
+    onehot_f = s_idx == s_f[None, :]
+    cost_f = torch.where(onehot_f, cost, zero).sum(dim=0, dtype=i32)
+    size_f = torch.where(onehot_f, size, zero).sum(dim=0, dtype=i32)
+    count_f = torch.where(onehot_f, counts, zero).sum(dim=0, dtype=i32)
+    final_ok = (
+        (~broke)
+        & (m_col > 0)
+        & (size_f >= min_overlap)
+        & (cost_f <= thresh_of(size_f))
+    )
+    meta = torch.stack(
+        [n_cand, s_f + torch.where(final_ok, 512, 0).to(i32), count_f]
+    ).to(i32)
+    return slots, meta
+
+
+class BatchInsertMatcher:
+    """Variable-length batched equivalent of ``MultiAligner.locate`` for
+    the paired-end insert configuration (flags START_WITHIN_SEQ1 |
+    STOP_WITHIN_SEQ2, reference and query truncated to the same per-pair
+    length — exactly how ``InsertAligner.match_insert`` calls it).
+
+    The device computes the per-diagonal match counts (the diagonal-count
+    kernels); :meth:`candidate_arrays` reconstructs the scalar kernel's
+    candidate stream from them on the host, in numpy, exactly as
+    ``atropos_tpu/align/batched.py::BatchInsertMatcher`` does (see there
+    for the banding derivation).
+    """
+
+    def __init__(self, max_error_rate, min_overlap=1, max_matches=100):
+        self.max_error_rate = float(max_error_rate)
+        self.min_overlap = min_overlap
+        self.max_matches = max_matches
+
+    def candidate_arrays(self, counts, refs_u8, reads_u8, lengths):
+        """Fully-vectorized candidate-stream reconstruction.
+
+        Returns a dict of arrays describing the scalar kernel's candidate
+        stream for every pair at once: ``cand`` [W, B] bool, ``rank`` [W,
+        B] int, ``n_cand`` [B], ``final_ok``/``final_s`` [B], and the
+        per-diagonal ``cost``/``size`` [W, B].
+        """
+        B, W = reads_u8.shape
+        err = self.max_error_rate
+        min_overlap = self.min_overlap
+        max_matches = self.max_matches
+
+        m = lengths.astype(np.int32)  # [B]
+        s_idx = np.arange(W, dtype=np.int32)[:, None]  # [W, 1]
+        size = m[None, :] - s_idx  # [W, B] overlap length per diagonal
+        in_range = size > 0
+        cost = np.where(in_range, size - counts, 0).astype(np.int32)
+        k = (err * m).astype(np.int32)  # int(err*m): C-double truncation
+        thresh = insert_step_table(err, W)
+
+        # mismatch at the bottom row of each diagonal (host byte compare)
+        last_ref = np.take_along_axis(
+            refs_u8, np.maximum(m - 1, 0)[:, None].astype(np.int64), axis=1
+        )  # [B, 1]
+        q_idx = np.clip(m[None, :] - 1 - s_idx, 0, W - 1).T  # [B, W]
+        q_last = np.take_along_axis(reads_u8, q_idx, axis=1).T  # [W, B]
+        mm_last = (q_last != last_ref.T).astype(np.int32)
+
+        alive_bot = in_range & (cost <= k[None, :])
+        # s >= m_b: zero-length overlap, running cost 0 -> alive
+        alive_bot_ext = alive_bot | ~in_range
+        alive_m1 = in_range & ((cost - mm_last) <= k[None, :])
+        # band reached row m at column j = m - s
+        reach = np.empty_like(alive_bot)
+        reach[:-1] = alive_bot_ext[1:]
+        reach[-1] = True  # s = W-1: zero/negative overlap successor
+        reach |= alive_m1
+        reach &= in_range
+
+        rec = (
+            reach
+            & alive_bot
+            & (size >= min_overlap)
+            & (cost <= thresh[np.clip(size, 0, W)])
+        )
+
+        # emission order is s descending; rank(s) = #candidates with
+        # s' > s = total - inclusive-prefix-count
+        rec_i = rec.astype(np.int32)
+        prefix_incl = np.cumsum(rec_i, axis=0)
+        total = prefix_incl[-1]
+        rank = total[None, :] - prefix_incl
+        # exact-match collapse: diagonal 0 with zero cost, if reached
+        # before the cap, erases every earlier candidate
+        exact = rec[0] & (cost[0] == 0) & (rank[0] < max_matches)
+        kept = rec & (rank < max_matches)
+        cand = np.where(exact[None, :], (s_idx == 0) & rec, kept)
+        rank = np.where(exact[None, :], 0, rank)
+
+        # final-column re-record: only for pairs that neither collapsed
+        # nor hit the candidate cap
+        broke = exact | (total >= max_matches)
+        any_reach = reach.any(axis=0)
+        first_reach = np.argmax(reach, axis=0)  # min s with reach
+        s_f = np.where(any_reach, first_reach, np.maximum(m - 1, 0))
+        rows_b = np.arange(B)
+        cost_f = cost[s_f, rows_b]
+        size_f = size[s_f, rows_b]
+        final_ok = (
+            (~broke)
+            & (m > 0)
+            & (size_f >= min_overlap)
+            & (cost_f <= thresh[np.clip(size_f, 0, W)])
+        )
+        return dict(
+            cand=cand,
+            rank=rank,
+            n_cand=cand.sum(axis=0).astype(np.int64),
+            final_ok=final_ok,
+            final_s=s_f,
+            cost=cost,
+            size=size,
+        )

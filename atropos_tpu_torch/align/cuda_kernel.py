@@ -12,7 +12,9 @@ wrapper                replaces                                    cell word
 ``dp_locate_wide``     ``pallas_kernel.py::_dp_kernel``            64 bits
 =====================  ==========================================  =========
 
-Each wrapper checks its arguments, allocates the ``[8, B]`` output,
+Each wrapper checks its arguments, allocates the ``[8, B]`` output (and,
+for an adapter whose cell column does not fit shared memory, the
+``[m + 1, B]`` global-memory column the kernel then works in),
 launches its kernel on PyTorch's current stream without synchronizing,
 raises when the launch is refused, and counts its launches in a plain
 integer ``launches``. Given CPU tensors — and only then — a wrapper runs
@@ -40,7 +42,8 @@ MAX_SHARED_BYTES = 232448
 
 #: threads of a block: 64 gives a batch of 32768 reads 512 blocks to spread
 #: over the card's 132 SMs; halved (down to one warp) for adapters whose
-#: cell column does not fit the shared memory of a wider block
+#: cell column does not fit the shared memory of a wider block, and 64
+#: again once even one warp's columns do not fit and move to global memory
 THREADS_PER_BLOCK = 64
 
 _LIB_NAME = "dp_align"
@@ -73,7 +76,7 @@ def _lib():
     lib = _build.load(_LIB_NAME)
     if not getattr(lib, "_atropos_bound", False):
         argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
         )
         for name in ("dp_locate_word32", "dp_locate_wide"):
             fn = getattr(lib, name)
@@ -130,6 +133,18 @@ class _DpKernel:
     def shared_bytes(self, m, threads):
         return (self.word_bits // 8) * (m + 1) * threads + 4 * (m + 1) + m
 
+    def block_layout(self, m):
+        """(threads a block, whether the cell column lives in global
+        memory) for an adapter of ``m`` bases: the widest block up to
+        ``THREADS_PER_BLOCK`` whose columns fit shared memory, else
+        ``THREADS_PER_BLOCK`` threads with the column in global memory."""
+        threads = THREADS_PER_BLOCK
+        while threads > 32 and self.shared_bytes(m, threads) > MAX_SHARED_BYTES:
+            threads //= 2
+        if self.shared_bytes(m, threads) > MAX_SHARED_BYTES:
+            return THREADS_PER_BLOCK, True
+        return threads, False
+
     def plain(self, reads_T, lengths_row, ref_bytes, thresholds, **params):
         """The plain PyTorch version of this kernel, on any device."""
         m = params["m"]
@@ -171,23 +186,21 @@ class _DpKernel:
                     self.name, m, k, L, self.word_bits
                 )
             )
-        threads = THREADS_PER_BLOCK
-        while threads > 32 and self.shared_bytes(m, threads) > MAX_SHARED_BYTES:
-            threads //= 2
-        if self.shared_bytes(m, threads) > MAX_SHARED_BYTES:
-            raise ValueError(
-                "{}: an adapter of {} bases needs {} bytes of shared memory "
-                "for a block of 32 threads, more than the {} a block may "
-                "have".format(
-                    self.name, m, self.shared_bytes(m, 32), MAX_SHARED_BYTES
-                )
-            )
+        threads, global_col = self.block_layout(m)
         out = torch.empty((8, B), dtype=torch.int32, device=reads_T.device)
+        col = None
+        if global_col:
+            col = torch.empty(
+                ((m + 1) * B,),
+                dtype=torch.int32 if self.word_bits == 32 else torch.int64,
+                device=reads_T.device,
+            )
         with torch.cuda.device(reads_T.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = getattr(_lib(), self.name)(
                 reads_T.data_ptr(), lengths_row.data_ptr(), out.data_ptr(),
                 ref_bytes.data_ptr(), thresholds.data_ptr(),
+                None if col is None else col.data_ptr(),
                 L, B, m, k, flags, min_overlap, ins_cost, del_cost,
                 int(bool(compare_ascii)), layout[0], layout[1], threads,
                 stream,

@@ -1,14 +1,16 @@
 """The 'trim' command: adapter/quality trimming.
 
 The stack is assembled by :mod:`~atropos_tpu_torch.commands.trim.builder`
-and executed by the turbo runner (:mod:`atropos_tpu_torch.engine.turbo`):
+and executed by a turbo runner (:mod:`atropos_tpu_torch.engine.turbo`):
 streaming native parse -> one device step per batch -> native format, for
-single-end interval-expressible configurations. Counterpart of
+interval-expressible configurations, single-end (``TurboTrimRunner``) or
+paired-end with either aligner (``TurboPairedRunner``). Counterpart of
 ``atropos_tpu/commands/trim/__init__.py``; the engine, serial, parallel
 and multi-host modes of that module are not part of this package and
 raise :class:`~atropos_tpu_torch.NotPortedError`.
 """
 import logging
+import textwrap
 
 from atropos_tpu_torch import NotPortedError
 from atropos_tpu_torch.commands.base import BaseCommandRunner
@@ -19,14 +21,24 @@ from atropos_tpu_torch.commands.trim.pipeline import (  # noqa: F401
 )
 
 
+_PAIRING_LABEL = {
+    False: "single-end",
+    "first": "paired-end legacy",
+    "both": "paired-end",
+}
+
+_LEGACY_MODE_WARNING = (
+    "Requested read modifications are applied only to the first read since "
+    "backwards compatibility mode is enabled. To modify both reads, also "
+    "use any of the -A/-B/-G/-U options. Use a dummy adapter sequence when "
+    "necessary: -A XXX"
+)
+
+
 def check_ported(options):
     """Raise :class:`NotPortedError` for every option that selects a
-    path outside the single-end turbo slice. Runs before the input is
+    path outside the ported turbo slices. Runs before the input is
     opened, so nothing is read or written for such a request."""
-    if options.paired or options.input2 or options.interleaved_input:
-        raise NotPortedError("paired-end trimming", "paired")
-    if getattr(options, "aligner", "adapter") == "insert":
-        raise NotPortedError("the insert aligner", "insert")
     if options.colorspace:
         raise NotPortedError("colorspace trimming", "engine")
     if options.threads is not None:
@@ -59,18 +71,26 @@ class CommandRunner(BaseCommandRunner):
 
         num_adapters = sum(len(a) for a in modifiers.get_adapters())
         logger.info(
-            "Trimming %s adapter%s with at most %.1f%% errors in single-end "
-            "mode ...",
+            "Trimming %s adapter%s with at most %.1f%% errors in %s mode ...",
             num_adapters,
             "s" if num_adapters > 1 else "",
             options.error_rate * 100,
+            _PAIRING_LABEL[options.paired],
         )
+        if options.paired == "first" and (
+            modifiers.get_modifiers(read=2) or options.quality_cutoff
+        ):
+            logger.warning("\n".join(textwrap.wrap(_LEGACY_MODE_WARNING)))
 
-        from atropos_tpu_torch.engine.turbo import TurboTrimRunner
+        from atropos_tpu_torch.engine.turbo import (
+            TurboPairedRunner,
+            TurboTrimRunner,
+        )
 
         # build() returns the runner or raises NotPortedError with the
         # reason the turbo runner of atropos_tpu would decline for
-        turbo = TurboTrimRunner.build(
+        runner_class = TurboPairedRunner if options.paired else TurboTrimRunner
+        turbo = runner_class.build(
             self, record_handler, writers, device=options.device
         )
         self.summary.update(mode="turbo", threads=1)

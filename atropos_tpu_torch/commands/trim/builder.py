@@ -110,9 +110,11 @@ class TrimStackBuilder:
 
     def build_modifiers(self):
         options = self.options
-        if options.paired:
-            raise NotPortedError("paired-end modifier chains", "paired")
-        chain = mod.SingleEndModifiers()
+        chain = (
+            mod.PairedEndModifiers(options.paired)
+            if options.paired
+            else mod.SingleEndModifiers()
+        )
         for opcode in options.op_order:
             self._OP_STAGES[opcode](self, chain)
         for stage in self._FIXED_STAGES:
@@ -129,7 +131,20 @@ class TrimStackBuilder:
         if not (self.adapters1 or self.adapters2):
             return
         if options.aligner == "insert":
-            raise NotPortedError("the insert aligner", "insert")
+            chain.add_modifier(
+                mod.InsertAdapterCutter,
+                adapter1=self.adapters1[0],
+                adapter2=self.adapters2[0],
+                action=options.action,
+                mismatch_action=options.correct_mismatches,
+                max_insert_mismatch_frac=options.insert_match_error_rate,
+                max_adapter_mismatch_frac=options.insert_match_adapter_error_rate,
+                match_probability=self.match_probability,
+                insert_max_rmp=options.insert_max_rmp,
+                read_wildcards=options.match_read_wildcards,
+                adapter_wildcards=options.match_adapter_wildcards,
+            )
+            return
 
         def cutter_args(adapters):
             if not adapters:
@@ -192,7 +207,7 @@ class TrimStackBuilder:
             elif preset == "rrbs":
                 chain.add_modifier(mod.RRBSTrimmer)
             elif preset == "swift":
-                raise NotPortedError("--bisulfite swift", "paired")
+                raise NotPortedError("--bisulfite swift", "engine")
             # 'epignome'/'truseq': trimming leads to worse results — no-op
             return
         if preset[0]:
@@ -241,7 +256,7 @@ class TrimStackBuilder:
     def _stage_merge(self, chain):
         options = self.options
         if options.merge_overlapping:
-            raise NotPortedError("--merge-overlapping", "paired")
+            raise NotPortedError("--merge-overlapping", "engine")
 
     _FIXED_STAGES = (
         _stage_bisulfite,

@@ -1,14 +1,15 @@
 """Read modifiers: every transformation the trim command can apply.
 
 Organized as: the modifier protocol (``base``), single-read transforms
-(``single``), the adapter cutter (``adapter_cutter``), and — below —
-the ordered container that holds a configured single-end modifier chain.
-All names re-export here; behavior matches the reference
-(``atropos/commands/trim/modifiers.py``). The turbo runner
-(:mod:`atropos_tpu_torch.engine.turbo`) reads each stage's parameters
-from the chain and accumulates its statistics into it; the pair-level
-modifiers of ``atropos_tpu/commands/trim/modifiers/paired.py`` have no
-counterpart here yet.
+(``single``), the adapter cutter (``adapter_cutter``), the insert-match
+adapter cutter of read pairs (``paired``), and — below — the ordered
+containers that hold a configured single-end or paired-end modifier
+chain. All names re-export here; behavior matches the reference
+(``atropos/commands/trim/modifiers.py``). The turbo runners
+(:mod:`atropos_tpu_torch.engine.turbo`) read each stage's parameters
+from the chain and accumulate its statistics into it. Of the pair-level
+modifiers of ``atropos_tpu/commands/trim/modifiers/paired.py`` only
+``InsertAdapterCutter`` has a counterpart here.
 """
 from atropos_tpu_torch.commands.trim.modifiers.base import (  # noqa: F401
     Modifier,
@@ -34,6 +35,10 @@ from atropos_tpu_torch.commands.trim.modifiers.single import (  # noqa: F401
     UnconditionalCutter,
     ZeroCapper,
 )
+from atropos_tpu_torch.commands.trim.modifiers.paired import (  # noqa: F401
+    InsertAdapterCutter,
+)
+
 
 class Modifiers:
     """An ordered chain of modifiers plus a type index.
@@ -84,6 +89,10 @@ class Modifiers:
                 adapters[0] = cutter1.adapters
             if cutter2:
                 adapters[1] = cutter2.adapters
+        elif self.has_modifier(InsertAdapterCutter):
+            cutter = self.get_modifiers(InsertAdapterCutter)[0]
+            adapters[0] = [cutter.adapter1]
+            adapters[1] = [cutter.adapter2]
         return adapters
 
     # subclass responsibilities
@@ -125,3 +134,86 @@ class SingleEndModifiers(Modifiers):
             stats["desc"] = mod.description
             report[mod.name] = stats
         return report
+
+
+class PairedEndModifiers(Modifiers):
+    """Modifier chain over read pairs.
+
+    ``paired == 'both'`` allows per-mate and pair modifiers; the legacy
+    ``'first'`` mode only ever modifies read1.
+    """
+
+    def __init__(self, paired):
+        super().__init__()
+        self.paired = paired
+
+    def add_modifier(self, mod_class, read=1 | 2, **kwargs):
+        if issubclass(mod_class, ReadPairModifier):
+            if self.paired != "both" and read == 1 | 2:
+                raise ValueError(
+                    "Must have paired-end reads to use modifer {}".format(
+                        mod_class
+                    )
+                )
+            return self._register(mod_class, mod_class(**kwargs))
+        entry = [
+            mod_class(**kwargs) if read & 1 else None,
+            mod_class(**kwargs) if (read & 2 and self.paired == "both") else None,
+        ]
+        if not any(entry):
+            return None
+        return self._register(mod_class, entry)
+
+    def add_modifier_pair(self, mod_class, read1_args=None, read2_args=None):
+        entry = [
+            mod_class(**read1_args) if read1_args is not None else None,
+            mod_class(**read2_args)
+            if (read2_args is not None and self.paired == "both")
+            else None,
+        ]
+        if any(entry):
+            return self._register(mod_class, entry)
+
+    def modify(self, read1, read2=None):
+        for entry in self.modifiers:
+            if isinstance(entry, ReadPairModifier):
+                read1, read2 = entry(read1, read2)
+            else:
+                if entry[0] is not None:
+                    read1 = entry[0](read1)
+                if entry[1] is not None:
+                    read2 = entry[1](read2)
+        return (read1, read2)
+
+    def summarize(self):
+        report = {}
+        for entry in self.modifiers:
+            if isinstance(entry, ReadPairModifier):
+                stats = entry.summarize()
+                stats["desc"] = entry.description
+                report[entry.name] = stats
+            elif any(entry):
+                self._summarize_pair(report, entry)
+        return report
+
+    @staticmethod
+    def _summarize_pair(report, entry):
+        """Zip per-mate summaries into (read1_value, read2_value) tuples."""
+        mod1, mod2 = entry
+        stats1 = mod1.summarize() if mod1 else {}
+        stats2 = mod2.summarize() if mod2 else {}
+        if mod1 and stats1:
+            name, desc, keys = mod1.name, mod1.description, stats1.keys()
+            if mod2 and stats2:
+                assert name == mod2.name
+                assert desc == mod2.description
+                assert set(keys) == set(stats2.keys())
+        elif mod2 and stats2:
+            name, desc, keys = mod2.name, mod2.description, stats2.keys()
+        else:
+            return
+        merged = {
+            key: (stats1.get(key, None), stats2.get(key, None)) for key in keys
+        }
+        merged["desc"] = desc
+        report[name] = merged

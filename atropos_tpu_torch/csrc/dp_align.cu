@@ -37,6 +37,16 @@
 //     threads hit 32 different banks. m, k, the flags, the costs, the
 //     adapter bytes and the threshold table are run-time arguments, so one
 //     build serves every adapter.
+//   * An adapter whose column does not fit shared memory even for one
+//     warp (m + 1 words a thread times 32 threads above 232,448 bytes:
+//     m > about 1,800 for the 32-bit word, 900 for the 64-bit one) keeps
+//     its column in global memory instead, in a scratch buffer of
+//     [m + 1, B] words that the wrapper allocates, laid out [row][read] so
+//     that a warp's 32 accesses to one row are one coalesced transaction;
+//     the adapter bytes and thresholds are then read from global memory
+//     too. Each exported kernel so has two instantiations of the same
+//     device function, picked by the entry point: the results are the
+//     same, only where the column lives differs.
 //   * Reads arrive [L, B] uint8: in column j a warp loads 32 neighbouring
 //     bytes. A warp leaves the column loop as soon as all its reads are
 //     past their last column or have found an exact match.
@@ -74,30 +84,50 @@ struct DpParams {
     int org_bits;      // width of the origin + m field
 };
 
-template <typename Word>
+// GLOBAL_COL false: the column, thresholds and adapter bytes in dynamic
+// shared memory; true: all three in global memory, the column in the
+// caller's [m + 1, B] scratch buffer col_g.
+template <typename Word, bool GLOBAL_COL>
 __device__ __forceinline__ void dp_body(
     const uint8_t* __restrict__ reads,     // [L, B]
     const int32_t* __restrict__ lengths,   // [B]
     int32_t* __restrict__ out,             // [8, B]
     const uint8_t* __restrict__ ref_g,     // [m]
     const int32_t* __restrict__ thr_g,     // [m + 1]
+    Word* __restrict__ col_g,              // [m + 1, B] when GLOBAL_COL
     const DpParams p)
 {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
     const int T = blockDim.x;
     const int tid = threadIdx.x;
     const int m = p.m;
     const int k = p.k;
     const int M1 = m + 1;
-
-    Word* cells = reinterpret_cast<Word*>(smem_raw);               // [M1][T]
-    int32_t* thr = reinterpret_cast<int32_t*>(cells + (size_t)M1 * T);
-    uint8_t* ref = reinterpret_cast<uint8_t*>(thr + M1);
-    for (int i = tid; i < M1; i += T) thr[i] = thr_g[i];
-    for (int i = tid; i < m; i += T) ref[i] = ref_g[i];
-    __syncthreads();
-
     const int b = blockIdx.x * T + tid;
+
+    // cell of row i of this thread's read: cells[i * cstride]
+    Word* cells;
+    size_t cstride;
+    const int32_t* thr;
+    const uint8_t* ref;
+    if constexpr (GLOBAL_COL) {
+        cells = col_g + b;
+        cstride = (size_t)p.B;
+        thr = thr_g;
+        ref = ref_g;
+    } else {
+        extern __shared__ __align__(16) unsigned char smem_raw[];
+        Word* col_s = reinterpret_cast<Word*>(smem_raw);            // [M1][T]
+        int32_t* thr_s = reinterpret_cast<int32_t*>(col_s + (size_t)M1 * T);
+        uint8_t* ref_s = reinterpret_cast<uint8_t*>(thr_s + M1);
+        for (int i = tid; i < M1; i += T) thr_s[i] = thr_g[i];
+        for (int i = tid; i < m; i += T) ref_s[i] = ref_g[i];
+        __syncthreads();
+        cells = col_s + tid;
+        cstride = (size_t)T;
+        thr = thr_s;
+        ref = ref_s;
+    }
+
     if (b >= p.B) return;  // B is a multiple of 32: whole warps leave
 
     const bool start_in_ref = p.flags & START_WITHIN_SEQ1;
@@ -138,7 +168,7 @@ __device__ __forceinline__ void dp_body(
             o = min_n - i;
         }
         const int cc = (int)min(c, (long long)clamp);
-        cells[(size_t)i * T + tid] =
+        cells[(size_t)i * cstride] =
             ((Word)cc << cost_shift) | ((Word)(o + m) << org_shift);
     }
 
@@ -158,7 +188,7 @@ __device__ __forceinline__ void dp_body(
         const int qc = reads[(size_t)(j - 1) * p.B + b];
 
         // row 0; its old value is the diagonal source of row 1
-        Word diag = cells[tid];
+        Word diag = cells[0];
         Word prev;
         if (start_in_query) {
             prev = (diag & ~org_field) | ((Word)(j + m) << org_shift);
@@ -166,11 +196,11 @@ __device__ __forceinline__ void dp_body(
             prev = (diag & low_mask) |
                    ((Word)min(j * ins_unit, clamp) << cost_shift);
         }
-        cells[tid] = prev;
+        cells[0] = prev;
         int band = ((int)(prev >> cost_shift) <= k) ? 0 : -1;
 
         for (int i = 1; i <= last; ++i) {
-            const Word old = cells[(size_t)i * T + tid];
+            const Word old = cells[(size_t)i * cstride];
             const int rc = ref[i - 1];
             const bool eq = p.compare_ascii ? (rc == qc) : ((rc & qc) != 0);
             // a match is the forced diagonal: cost kept, matches + 1;
@@ -185,7 +215,7 @@ __device__ __forceinline__ void dp_body(
             c = min(c, clamp);
             const Word cur = eq ? diag + 1
                                 : (((Word)c << cost_shift) | (pay & low_mask));
-            cells[(size_t)i * T + tid] = cur;
+            cells[(size_t)i * cstride] = cur;
             band = ((int)(cur >> cost_shift) <= k) ? i : band;
             diag = old;
             prev = cur;
@@ -217,7 +247,7 @@ __device__ __forceinline__ void dp_body(
     if (max_n == n) {
         const int first_i = stop_in_ref ? 0 : m;
         for (int i = first_i; i <= m; ++i) {
-            const Word w = cells[(size_t)i * T + tid];
+            const Word w = cells[(size_t)i * cstride];
             const int ccost = (int)(w >> cost_shift);
             const int corg = (int)((w >> org_shift) & org_mask) - m;
             const int cmat = (int)(w & mat_mask);
@@ -248,44 +278,62 @@ __device__ __forceinline__ void dp_body(
 
 // Replaces pallas_kernel.py::_dp_kernel_fused: the whole cell in one 32-bit
 // word. Bound by integer operations (see the note at the top); the narrow
-// word halves the shared memory a column takes, so twice as many reads of a
-// long adapter fit a block as with the 64-bit word.
+// word halves the memory a column takes, so twice as many reads of a long
+// adapter fit a block as with the 64-bit word.
+template <bool GLOBAL_COL>
 __global__ void dp_locate_word32_kernel(
     const uint8_t* __restrict__ reads, const int32_t* __restrict__ lengths,
     int32_t* __restrict__ out, const uint8_t* __restrict__ ref,
-    const int32_t* __restrict__ thr, const DpParams p)
+    const int32_t* __restrict__ thr, uint32_t* __restrict__ col,
+    const DpParams p)
 {
-    dp_body<uint32_t>(reads, lengths, out, ref, thr, p);
+    dp_body<uint32_t, GLOBAL_COL>(reads, lengths, out, ref, thr, col, p);
 }
 
 // Replaces pallas_kernel.py::_dp_kernel, the TPU's two-plane kernel for
 // shapes its one-word layout refuses: here one 64-bit word a cell, for
 // (m, k, L) whose fields need more than 32 bits. Bound by integer operations
 // as above; 64-bit shifts and selects cost two 32-bit operations each, and a
-// column takes twice the shared memory, which the wrapper answers with
-// narrower blocks.
+// column takes twice the memory, which the wrapper answers with narrower
+// blocks, then with the column in global memory.
+template <bool GLOBAL_COL>
 __global__ void dp_locate_wide_kernel(
     const uint8_t* __restrict__ reads, const int32_t* __restrict__ lengths,
     int32_t* __restrict__ out, const uint8_t* __restrict__ ref,
-    const int32_t* __restrict__ thr, const DpParams p)
+    const int32_t* __restrict__ thr, unsigned long long* __restrict__ col,
+    const DpParams p)
 {
-    dp_body<unsigned long long>(reads, lengths, out, ref, thr, p);
+    dp_body<unsigned long long, GLOBAL_COL>(reads, lengths, out, ref, thr, col, p);
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, size_t word_bytes, const void* reads,
-           const void* lengths, void* out, const void* ref, const void* thr,
-           const DpParams& p, int threads, void* stream)
+// col == nullptr: the shared-memory instantiation; else the global-column
+// one, with col the [m + 1, B] scratch buffer.
+template <typename Word>
+int launch(void (*shared_kernel)(const uint8_t*, const int32_t*, int32_t*,
+                                 const uint8_t*, const int32_t*, Word*,
+                                 DpParams),
+           void (*global_kernel)(const uint8_t*, const int32_t*, int32_t*,
+                                 const uint8_t*, const int32_t*, Word*,
+                                 DpParams),
+           const void* reads, const void* lengths, void* out, const void* ref,
+           const void* thr, void* col, const DpParams& p, int threads,
+           void* stream)
 {
-    const size_t smem = word_bytes * (size_t)(p.m + 1) * threads +
+    const int blocks = (p.B + threads - 1) / threads;
+    if (col != nullptr) {
+        global_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+            (const uint8_t*)reads, (const int32_t*)lengths, (int32_t*)out,
+            (const uint8_t*)ref, (const int32_t*)thr, (Word*)col, p);
+        return (int)cudaGetLastError();
+    }
+    const size_t smem = sizeof(Word) * (size_t)(p.m + 1) * threads +
                         sizeof(int32_t) * (size_t)(p.m + 1) + (size_t)p.m;
     cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const int blocks = (p.B + threads - 1) / threads;
-    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+    shared_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
         (const uint8_t*)reads, (const int32_t*)lengths, (int32_t*)out,
-        (const uint8_t*)ref, (const int32_t*)thr, p);
+        (const uint8_t*)ref, (const int32_t*)thr, nullptr, p);
     return (int)cudaGetLastError();
 }
 
@@ -304,33 +352,37 @@ DpParams make_params(int L, int B, int m, int k, int flags, int min_overlap,
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each launches on the given
-// stream without synchronizing and returns cudaGetLastError().
+// stream without synchronizing and returns cudaGetLastError(); col is
+// nullptr, or the global-memory column for adapters whose column does not
+// fit shared memory.
 extern "C" {
 
 int dp_locate_word32(const void* reads, const void* lengths, void* out,
-                     const void* ref, const void* thr, int L, int B, int m,
-                     int k, int flags, int min_overlap, int ins_cost,
+                     const void* ref, const void* thr, void* col, int L, int B,
+                     int m, int k, int flags, int min_overlap, int ins_cost,
                      int del_cost, int compare_ascii, int mat_bits,
                      int org_bits, int threads, void* stream)
 {
-    return launch(dp_locate_word32_kernel, sizeof(uint32_t), reads, lengths,
-                  out, ref, thr,
-                  make_params(L, B, m, k, flags, min_overlap, ins_cost,
-                              del_cost, compare_ascii, mat_bits, org_bits),
-                  threads, stream);
+    return launch<uint32_t>(
+        dp_locate_word32_kernel<false>, dp_locate_word32_kernel<true>, reads,
+        lengths, out, ref, thr, col,
+        make_params(L, B, m, k, flags, min_overlap, ins_cost, del_cost,
+                    compare_ascii, mat_bits, org_bits),
+        threads, stream);
 }
 
 int dp_locate_wide(const void* reads, const void* lengths, void* out,
-                   const void* ref, const void* thr, int L, int B, int m,
-                   int k, int flags, int min_overlap, int ins_cost,
+                   const void* ref, const void* thr, void* col, int L, int B,
+                   int m, int k, int flags, int min_overlap, int ins_cost,
                    int del_cost, int compare_ascii, int mat_bits,
                    int org_bits, int threads, void* stream)
 {
-    return launch(dp_locate_wide_kernel, sizeof(unsigned long long), reads,
-                  lengths, out, ref, thr,
-                  make_params(L, B, m, k, flags, min_overlap, ins_cost,
-                              del_cost, compare_ascii, mat_bits, org_bits),
-                  threads, stream);
+    return launch<unsigned long long>(
+        dp_locate_wide_kernel<false>, dp_locate_wide_kernel<true>, reads,
+        lengths, out, ref, thr, col,
+        make_params(L, B, m, k, flags, min_overlap, ins_cost, del_cost,
+                    compare_ascii, mat_bits, org_bits),
+        threads, stream);
 }
 
 }  // extern "C"

@@ -1,42 +1,54 @@
 """Turbo trim path: zero-Python-object, latency-hiding streaming trim.
 
-Counterpart of ``atropos_tpu/engine/turbo.py`` for single-end input. For
-interval-expressible configurations (fixed cuts + quality/NextSeq trimming
-+ adapter trimming + conditional cuts/N-trimming + length/N filters,
-action=trim) the entire per-read pipeline is *interval arithmetic*: each
-stage only narrows a per-read keep-window [start, stop). The runner
-streams FASTQ/FASTA chunks through the native C parser
-(:mod:`atropos_tpu_torch.runtime`), runs one device step per batch,
-resolves the final windows, and assembles output bytes with the native
-formatters — no per-read Python objects anywhere.
+Counterpart of ``atropos_tpu/engine/turbo.py``. For interval-expressible
+single-end and paired-end configurations (fixed cuts + quality/NextSeq
+trimming + adapter trimming with either aligner + conditional
+cuts/N-trimming + length/N filters, action=trim) the entire per-read
+pipeline is *interval arithmetic*: each stage only narrows a per-read
+keep-window [start, stop). The runners stream FASTQ/FASTA chunks through
+the native C parser (:mod:`atropos_tpu_torch.runtime`), run one device
+step per batch, resolve the final windows, and assemble output bytes with
+the native formatters (separate or interleaved) — no per-read Python
+objects anywhere.
 
 Layout:
 
-- :class:`_MateLane` — the read's stage configuration and device work
+- :class:`_MateLane` — one mate's stage configuration and device work
   (prepare/submit a batch, resolve its keep-windows + statistics, apply
   post-adapter stages).
+- :class:`_InsertPair` — the paired insert-align stage: one fused device
+  step for both mates (both fallback DPs + the diagonal insert matcher +
+  on-device candidate slots), vectorized candidate selection, overhang
+  checks and symmetric duplication on the host.
 - :class:`TurboTrimRunner` — the single-end runner: one lane, filters,
   per-destination routing.
+- :class:`TurboPairedRunner` — the paired-end runner: two lanes fed by two
+  synchronized chunk streams (or one interleaved stream paired by stride),
+  vectorized pair filters (``any``/``both`` semantics of the reference's
+  PairedWrapper).
 
 The device interaction is pipelined (``DEPTH`` batches in flight):
 
-- **submit**: one bit-packed upload per batch (2-4 bits/base), written by
-  the native packer straight into a pinned host buffer and copied
-  ``non_blocking`` on a side stream; on the compute stream the step
+- **submit**: one bit-packed upload per batch and mate (2-4 bits/base),
+  written by the native packer straight into a pinned host buffer and
+  copied ``non_blocking`` on a side stream; on the compute stream the step
   unpacks the codes, decodes each adapter's view with a table gather into
   the ``[L, B]`` column-major layout, runs one DP kernel launch per
-  adapter (:mod:`atropos_tpu_torch.align.cuda_kernel`), packs the results
+  adapter (:mod:`atropos_tpu_torch.align.cuda_kernel`) — and for an insert
+  pair one diagonal-count kernel launch
+  (:mod:`atropos_tpu_torch.align.insert_kernel`) — packs the results
   into an int16 ``bundle`` and copies it into a pinned buffer, followed by
   an event.
 - **resolve**: wait for that batch's event only, then all interval
   resolution, validation, statistics (vectorized bincounts) and the
   native formatter run on host while later batches compute on the card.
+  A batch's pinned buffers go back to the free list only then.
 
 Quality and NextSeq trimming run on the host-native path (the windows are
 computed from the chunk buffer before the upload). Everything the turbo
-runner of ``atropos_tpu`` declines, and paired input, the sharded mesh,
-the device quality kernels, side files, ``--stats`` and demultiplexing,
-raise :class:`~atropos_tpu_torch.NotPortedError`.
+runners of ``atropos_tpu`` decline, and the sharded mesh, the device
+quality kernels, side files, ``--stats``, demultiplexing, ``-w`` and
+overlap error correction, raise :class:`~atropos_tpu_torch.NotPortedError`.
 
 Output is byte-identical to ``atropos_tpu``; all summary statistics
 (per-adapter histograms, trimmed-bp counters, filter counts) are
@@ -44,6 +56,7 @@ accumulated into the same stat objects, so reports are unchanged.
 """
 import collections
 import logging
+import os
 import time
 from functools import partial
 
@@ -58,10 +71,19 @@ from atropos_tpu_torch.adapters import (
     SUFFIX,
     Adapter,
 )
-from atropos_tpu_torch.align.batched import _translation_lut
+from atropos_tpu_torch.align import insert_kernel
+from atropos_tpu_torch.align.batched import (
+    INSERT_CANDIDATE_SLOTS,
+    BatchInsertMatcher,
+    _diagonal_match_counts,
+    _translation_lut,
+    insert_candidate_slots,
+    insert_step_table,
+)
 from atropos_tpu_torch.commands.trim.filters import (
     NContentFilter,
     NoFilter,
+    PairedWrapper,
     TooLongReadFilter,
     TooShortReadFilter,
     TrimmedFilter,
@@ -69,10 +91,12 @@ from atropos_tpu_torch.commands.trim.filters import (
 )
 from atropos_tpu_torch.commands.trim.modifiers import (
     AdapterCutter,
+    InsertAdapterCutter,
     MinCutter,
     NEndTrimmer,
     NextseqQualityTrimmer,
     QualityTrimmer,
+    ReadPairModifier,
     UnconditionalCutter,
 )
 from atropos_tpu_torch.engine import _PrefixSuffixMatcher, make_batch_aligner
@@ -82,17 +106,25 @@ from atropos_tpu_torch.io.seqio import (
     FastaFormat,
     FastqFormat,
     FormatError,
+    InterleavedFormatter,
     guess_format_from_name,
 )
 from atropos_tpu_torch.runtime import _i32, _i64, _u8
 from atropos_tpu_torch.commands.cli import int_or_str
-from atropos_tpu_torch.util import truncate_string
+from atropos_tpu_torch.util import BASE_COMPLEMENTS, truncate_string
 
 _UPPER_LUT = None
 
-#: telemetry of the last :meth:`TurboTrimRunner.run`: reads, batches, wall
-#: seconds and where the main thread and its helper threads spent them
+#: telemetry of the last :meth:`TurboTrimRunner.run` or
+#: :meth:`TurboPairedRunner.run`: reads (pairs), batches, wall seconds and
+#: where the main thread and its helper threads spent them
 LAST_RUN = {}
+
+#: telemetry: pairs whose insert-candidate stream exceeded the bundle's
+#: candidate slots and were re-derived from counts recomputed on the host
+#: (the reference's own semantics for such pairs, never a replacement of
+#: the device kernel for a batch)
+SLOT_OVERFLOWS = {"pairs": 0}
 
 
 def _upper(arr):
@@ -104,6 +136,21 @@ def _upper(arr):
         )
         _UPPER_LUT = lut
     return _UPPER_LUT[arr]
+
+
+_COMP_LUT256 = None
+
+
+def _complement_lut():
+    """Byte-indexed IUPAC complement table (identity for bytes outside
+    the map — util.complement semantics, byte for byte)."""
+    global _COMP_LUT256
+    if _COMP_LUT256 is None:
+        lut = np.arange(256, dtype=np.uint8)
+        for base, comp in BASE_COMPLEMENTS.items():
+            lut[ord(base)] = ord(comp)
+        _COMP_LUT256 = lut
+    return _COMP_LUT256
 
 
 def _pack_info(chunk):
@@ -322,29 +369,39 @@ class _PrefetchStream:
         self._stream.close()
 
 
-LaneTables = collections.namedtuple("LaneTables", "view_luts aligner_view")
+LaneTables = collections.namedtuple(
+    "LaneTables", "view_luts aligner_view insert_view"
+)
 
 
-def lane_tables_from_numpy(view_luts, aligner_view):
+def lane_tables_from_numpy(view_luts, aligner_view, insert_view=None):
     """A lane's decode state from numpy arrays: ``view_luts`` is a
     sequence of 256-entry uint8 byte -> view-byte tables (uppercasing and
-    the per-adapter wildcard translation collapsed into one lookup), and
+    the per-adapter wildcard translation collapsed into one lookup),
     ``aligner_view[i]`` the index of the table device aligner ``i`` reads
-    through. :meth:`_MateLane.load_tables` installs the result, so two
-    implementations can decode from the very same tables."""
+    through, and ``insert_view`` (insert-align lanes only) the index of the
+    table the diagonal matcher's byte plane is decoded with: the identity
+    for mate 1, the complement for mate 2. :meth:`_MateLane.load_tables`
+    installs the result, so two implementations can decode from the very
+    same tables."""
     luts = np.ascontiguousarray(
         np.stack([np.asarray(lut) for lut in view_luts]).astype(np.uint8)
     )
     if luts.ndim != 2 or luts.shape[1] != 256:
         raise ValueError("view_luts must be [n_views, 256]")
     views = tuple(int(v) for v in aligner_view)
-    if any(v < 0 or v >= luts.shape[0] for v in views):
-        raise ValueError("aligner_view indexes a missing view")
-    return LaneTables(luts, views)
+    if insert_view is not None:
+        insert_view = int(insert_view)
+    if any(
+        v < 0 or v >= luts.shape[0]
+        for v in views + ((insert_view,) if insert_view is not None else ())
+    ):
+        raise ValueError("a view index points past the tables")
+    return LaneTables(luts, views, insert_view)
 
 
 class _MateLane:
-    """One read's stage configuration and device work.
+    """One mate's stage configuration and device work.
 
     ``submit`` turns a (chunk, sub) record range into an in-flight device
     batch; ``resolve_windows`` waits for the batch's bundle and produces
@@ -353,7 +410,8 @@ class _MateLane:
     """
 
     def __init__(self, *, cut_front, cut_back, quality, nextseq, cutter,
-                 cutter_mod, post_mods=(), device=None):
+                 cutter_mod, insert_adapter=None, insert_role=None,
+                 post_mods=(), device=None):
         self.device = resolve_device(device)
         self.cut_front = cut_front
         self.cut_back = cut_back
@@ -361,8 +419,17 @@ class _MateLane:
         self.nextseq = nextseq
         self.cutter = cutter
         self.cutter_mod = cutter_mod
+        self.insert_role = insert_role
         self.post_mods = list(post_mods)
-        self.adapters = cutter.adapters if cutter else []
+        if cutter:
+            self.adapters = cutter.adapters
+        elif insert_adapter is not None:
+            # insert mode: the mate's 3' adapter drives the FALLBACK
+            # independent match (InsertAdapterCutter semantics); the pair
+            # resolver decides whether/how its result applies
+            self.adapters = [insert_adapter]
+        else:
+            self.adapters = []
 
         # anchored no-indel adapters match via the vectorized host
         # comparator (compare_prefixes semantics — O(B*m) byte ops, not
@@ -403,6 +470,15 @@ class _MateLane:
             view_luts.append(lut256)
             return len(view_luts) - 1
 
+        # insert mode: mate 1 feeds the diagonal matcher its raw window
+        # bytes (identity view); mate 2 feeds COMPLEMENTED bytes — the
+        # reverse-complement's complement step is just another decode
+        # table, the reversal is a device gather in the pair step
+        insert_view = None
+        if insert_role == 1:
+            insert_view = add_view(np.arange(256, dtype=np.uint8))
+        elif insert_role == 2:
+            insert_view = add_view(_complement_lut())
         upper_lut = _upper(np.arange(256, dtype=np.uint8))
         aligner_view = [
             add_view(upper_lut if lut is None else lut[upper_lut])
@@ -410,7 +486,9 @@ class _MateLane:
         ]
         if not view_luts:
             view_luts.append(upper_lut)
-        self.load_tables(lane_tables_from_numpy(view_luts, aligner_view))
+        self.load_tables(
+            lane_tables_from_numpy(view_luts, aligner_view, insert_view)
+        )
 
         self._free_slots = []
         self._upload_stream = (
@@ -431,17 +509,22 @@ class _MateLane:
         and the device copy the raw (> 16 symbols) upload decodes with."""
         if len(tables.aligner_view) != len(self._aligners):
             raise ValueError("one view index per device aligner is needed")
+        if (tables.insert_view is None) != (self.insert_role is None):
+            raise ValueError("an insert view is needed exactly for insert lanes")
         self._view_luts = [lut for lut in tables.view_luts]
         self._aligner_view = list(tables.aligner_view)
+        self._insert_view = tables.insert_view
         self._view_luts_dev = torch.from_numpy(tables.view_luts.copy()).to(
             self.device
         )
 
     @classmethod
-    def from_modifier_list(cls, mods, device=None):
-        """Build a lane from the read's ordered modifier list, or a
+    def from_modifier_list(cls, mods, insert_adapter=None, insert_role=None,
+                           device=None):
+        """Build a lane from one mate's ordered modifier list, or a
         decline-reason string when a stage is unsupported or out of the
-        default C -> G -> Q -> A order."""
+        default C -> G -> Q -> A order. ``insert_adapter``/``insert_role``
+        configure the lane as one mate of an insert-align pair."""
         cut_front = cut_back = 0
         quality = None
         nextseq = None
@@ -482,6 +565,8 @@ class _MateLane:
         for adapter in (cutter.adapters if cutter else []):
             if type(adapter) is not Adapter:
                 return "non-plain adapter"
+        if insert_adapter is not None and cutter is not None:
+            return "adapter cutter alongside insert cutter"
         return cls(
             cut_front=cut_front,
             cut_back=cut_back,
@@ -489,6 +574,8 @@ class _MateLane:
             nextseq=nextseq,
             cutter=cutter,
             cutter_mod=cutter_mod,
+            insert_adapter=insert_adapter,
+            insert_role=insert_role,
             post_mods=post,
             device=device,
         )
@@ -553,14 +640,17 @@ class _MateLane:
         bundle = torch.cat(rows, dim=0)
         return bundle.clamp(-32768, 32767).to(torch.int16)
 
-    def _core(self, width, bits, main, win16, tables):
-        """Per-batch device compute: unpack the 2/4-bit codes of ``main``
+    def _core(self, width, bits, main, win16, tables, need_plane=False):
+        """Per-batch device compute, composable into a single-mate step or
+        the fused insert pair step: unpack the 2/4-bit codes of ``main``
         ([B, width * bits / 8] uint8; raw bytes when ``bits`` is 0),
         decode each aligner's view with a gather from ``tables``
         ([n_views, n_codes] uint8) into the [L, B] column-major layout
         (neighbouring threads of the DP kernel then read neighbouring
         bytes), and run one DP per adapter. Returns the per-aligner result
-        rows and the int32 window lengths."""
+        rows, the int32 window lengths and, when ``need_plane``, the mate's
+        diagonal-matcher byte plane ([B, width] uint8: identity for mate 1,
+        complemented for mate 2)."""
         if bits == 2:
             parts = [(main >> shift) & 3 for shift in (0, 2, 4, 6)]
             codes = torch.stack(parts, dim=-1).reshape(main.shape[0], width)
@@ -570,7 +660,8 @@ class _MateLane:
             )
         else:
             codes = main
-        codes_T = codes.T.long()  # [L, B] gather indices
+        codes = codes.long()
+        codes_T = codes.T  # [L, B] gather indices
         win_len = win16.to(torch.int32)
         win_row = win_len[None, :].contiguous()
 
@@ -582,7 +673,8 @@ class _MateLane:
                 reads_T[view_idx] = tables[view_idx][codes_T].contiguous()
             out7 = aligner(reads_T[view_idx], win_row)[:7]
             rows.append(self._pack_res_rows(out7) if pack3 else out7)
-        return rows, win_len
+        plane = tables[self._insert_view][codes] if need_plane else None
+        return rows, win_len, plane
 
     def _step(self, width, bits, main, win16, tables):
         """The single-read device step for one batch: :meth:`_core`, one
@@ -591,7 +683,7 @@ class _MateLane:
         Bundle rows per device aligner: 3 packed rows or the flat 7
         (found, start1, stop1, start2, stop2, matches, cost), by
         :meth:`res_rows`."""
-        rows, win_len = self._core(width, bits, main, win16, tables)
+        rows, win_len, _ = self._core(width, bits, main, win16, tables)
         return self._finish_bundle(rows, win_len)
 
     # -- submit: host prep + async device dispatch ----------------------------
@@ -754,29 +846,41 @@ class _MateLane:
             )
             return
         with torch.cuda.device(self.device):
-            compute = torch.cuda.current_stream()
-            with torch.cuda.stream(self._upload_stream):
-                dev_args = [
-                    None if arg is None
-                    else arg.to(self.device, non_blocking=True)
-                    for arg in args
-                ]
-                uploaded = torch.cuda.Event()
-                uploaded.record(self._upload_stream)
-            compute.wait_event(uploaded)
-            for arg in dev_args:
-                if arg is not None:
-                    arg.record_stream(compute)
-            main, win16, tables = dev_args
+            main, win16, tables = self._upload(args)
             bundle = self._step(
                 tok.width, bits, main, win16,
                 self._view_luts_dev if tables is None else tables,
             )
-            fetch = tok.slot.buffer("bundle", tuple(bundle.shape), torch.int16)
-            fetch.copy_(bundle, non_blocking=True)
-            tok.bundle = fetch
-            tok.event = torch.cuda.Event()
-            tok.event.record(compute)
+            tok.bundle, tok.event = self._enqueue_fetch(tok.slot, bundle)
+
+    def _upload(self, args):
+        """Copy one batch's host arguments from the slot's pinned buffers
+        to the card ``non_blocking`` on the side stream; the current
+        stream waits for them (call under ``torch.cuda.device``)."""
+        compute = torch.cuda.current_stream()
+        with torch.cuda.stream(self._upload_stream):
+            dev_args = [
+                None if arg is None
+                else arg.to(self.device, non_blocking=True)
+                for arg in args
+            ]
+            uploaded = torch.cuda.Event()
+            uploaded.record(self._upload_stream)
+        compute.wait_event(uploaded)
+        for arg in dev_args:
+            if arg is not None:
+                arg.record_stream(compute)
+        return dev_args
+
+    @staticmethod
+    def _enqueue_fetch(slot, bundle):
+        """Copy a device bundle into the slot's pinned fetch buffer on the
+        current stream; returns (host buffer, event after the copy)."""
+        fetch = slot.buffer("bundle", tuple(bundle.shape), torch.int16)
+        fetch.copy_(bundle, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream())
+        return fetch, event
 
     def _fetch_bundle(self, tok):
         """The batch's bundle as an int32 array, once its event has
@@ -1193,6 +1297,692 @@ class _MateLane:
         return (is_n & in_win).sum(axis=1)
 
 
+InsertTables = collections.namedtuple(
+    "InsertTables", "step_table complement ref_lut ad1_t ad2_t"
+)
+
+
+def insert_tables_from_numpy(step_table, complement, ref_lut, ad1_t, ad2_t):
+    """An insert pair's tables from numpy arrays: ``step_table`` the
+    ``floor(s * err)`` thresholds for s in [0, 255] computed in float64
+    (:func:`~atropos_tpu_torch.align.batched.insert_step_table`), the
+    256-entry byte ``complement`` table that decodes mate 2's matcher
+    plane, and the overhang comparator's tables (``ref_lut`` the 256-entry
+    translation of the read bytes, ``ad1_t``/``ad2_t`` the translated
+    adapter bytes). :meth:`_InsertPair.load_tables` installs the result,
+    so two implementations can compute from the very same numbers."""
+    step = np.ascontiguousarray(step_table, np.int32)
+    if step.ndim != 1 or step.shape[0] < 256:
+        raise ValueError("step_table must hold s = 0..255")
+    luts = [np.ascontiguousarray(lut, np.uint8) for lut in (complement, ref_lut)]
+    if any(lut.shape != (256,) for lut in luts):
+        raise ValueError("complement and ref_lut must be 256-entry tables")
+    return InsertTables(
+        step, luts[0], luts[1],
+        np.ascontiguousarray(ad1_t, np.uint8),
+        np.ascontiguousarray(ad2_t, np.uint8),
+    )
+
+
+class _PairInflight:
+    """One in-flight insert-align pair batch: two prepared mate tokens
+    plus the fused step's bundle (a pinned host buffer on the card's path)
+    and its event."""
+
+    __slots__ = ("tok1", "tok2", "bundle", "event")
+
+    def __init__(self, tok1, tok2):
+        self.tok1 = tok1
+        self.tok2 = tok2
+        self.bundle = None
+        self.event = None
+
+
+class _InsertPair:
+    """Turbo implementation of the insert-align paired stage: the
+    device+host twin of ``InsertAdapterCutter`` over whole batches
+    (counterpart of ``atropos_tpu/engine/turbo.py::_InsertPair`` without
+    its overlap error correction, which raises ``NotPortedError`` when the
+    stack is built).
+
+    Device side (one fused step per batch): both mates' decode and
+    fallback-adapter DP kernels, then the diagonal matcher over
+    (rc(read2-window), read1-window) truncated to the per-pair min window —
+    exactly the scalar ``InsertAligner.match_insert`` setup. The reverse
+    complement is a complement decode table plus one device gather, so
+    nothing extra crosses the link. The counts come from
+    ``diag_counts_u8`` where the reference runs its packed Pallas kernel
+    (window <= 255, <= 14 symbols) and from ``diag_counts_i32`` elsewhere;
+    for windows <= 255 the candidate stream is reconstructed on the device
+    (:func:`~atropos_tpu_torch.align.batched.insert_candidate_slots`, torch
+    ops) and only its fixed slots cross back, else the whole counts plane.
+
+    Host side (vectorized, no per-pair Python): closed-form candidate
+    reconstruction for slot-overflow pairs (:data:`SLOT_OVERFLOWS`) and the
+    counts-plane path, random-match-probability filtering,
+    probability-ordered candidate selection with both overhang-adapter
+    checks, fallback independent matches, symmetric-match duplication and
+    per-mate trims + statistics.
+    """
+
+    def __init__(self, lane1, lane2, cutter):
+        self.lane1 = lane1
+        self.lane2 = lane2
+        self.cutter = cutter
+        aligner = cutter.aligner
+        self.aligner = aligner
+        self.matcher = BatchInsertMatcher(
+            aligner.max_insert_mismatch_frac,
+            aligner.min_insert_overlap,
+            max_matches=100,
+        )
+        # overhang comparator translation: compare_prefixes(ref=overhang,
+        # query=adapter) with the reference's argument order
+        aw = aligner.adapter_wildcards
+        rw = aligner.read_wildcards
+        self._cmp_ascii = not (aw or rw)
+        query_lut = _translation_lut(aw, rw, for_query=True)
+        self._ad1 = np.frombuffer(aligner.adapter1.encode("ascii"), np.uint8)
+        self._ad2 = np.frombuffer(aligner.adapter2.encode("ascii"), np.uint8)
+        self.load_tables(
+            insert_tables_from_numpy(
+                insert_step_table(self.matcher.max_error_rate, 255),
+                _complement_lut(),
+                _translation_lut(aw, rw, for_query=False),
+                query_lut[self._ad1],
+                query_lut[self._ad2],
+            )
+        )
+        #: pair batches through the fused step, and the host seconds spent
+        #: preparing both mates, enqueueing and waiting for the card
+        self.device_batches = 0
+        self.prepare_seconds = 0.0
+        self.dispatch_seconds = 0.0
+        self.wait_seconds = 0.0
+
+    def load_tables(self, tables):
+        """Install :class:`InsertTables` (the step table goes to the
+        lanes' device)."""
+        self._complement = tables.complement
+        self._ref_lut = tables.ref_lut
+        self._ad1_t = tables.ad1_t
+        self._ad2_t = tables.ad2_t
+        self._step_table = torch.from_numpy(tables.step_table.copy()).to(
+            self.lane1.device
+        )
+
+    # -- submit ---------------------------------------------------------------
+
+    def _n_symbols(self, chunk1, chunk2):
+        """The size of the diagonal matcher's combined alphabet (query =
+        mate 1 bytes, ref = complemented mate 2 bytes): with the window, it
+        picks the counts kernel (:func:`insert_kernel.kernel_for`)."""
+        return len(
+            set(int(x) for x in chunk1.alphabet)
+            | set(int(self._complement[x]) for x in chunk2.alphabet)
+        )
+
+    def submit(self, chunk1, sub1, chunk2, sub2):
+        """Prepare both mates, upload them and enqueue the fused step;
+        nothing here waits for the device."""
+        began = time.perf_counter()
+        tok1, args1, bits1 = self.lane1.prepare(chunk1, sub1)
+        tok2, args2, bits2 = self.lane2.prepare(chunk2, sub2)
+        prepared = time.perf_counter()
+        self.prepare_seconds += prepared - began
+        if args1 is None or args2 is None or tok1.pad_b != tok2.pad_b:
+            raise AssertionError("both insert lanes carry one device aligner")
+        w_ins = min(tok1.width, tok2.width)
+        kernel = insert_kernel.kernel_for(
+            w_ins, self._n_symbols(chunk1, chunk2)
+        )
+        ptok = _PairInflight(tok1, tok2)
+        self.device_batches += 1
+        lane1 = self.lane1
+        luts1 = lane1._view_luts_dev
+        luts2 = self.lane2._view_luts_dev
+        if lane1.device.type != "cuda":
+            ptok.bundle = self._step(
+                tok1, bits1, args1, luts1, tok2, bits2, args2, luts2, kernel
+            )
+        else:
+            with torch.cuda.device(lane1.device):
+                dev1 = lane1._upload(args1)
+                dev2 = self.lane2._upload(args2)
+                bundle = self._step(
+                    tok1, bits1, dev1, luts1, tok2, bits2, dev2, luts2, kernel
+                )
+                ptok.bundle, ptok.event = lane1._enqueue_fetch(
+                    tok1.slot, bundle
+                )
+        self.dispatch_seconds += time.perf_counter() - prepared
+        return ptok
+
+    def _planes(self, tok1, bits1, args1, luts1, tok2, bits2, args2, luts2):
+        """The device work of the pair step before the counts: both lanes'
+        :meth:`_MateLane._core`, the per-pair ``m_col = min(win1, win2)``
+        zeroed below the insert-overlap floor and the reversal gather of
+        mate 2's complemented plane. Returns (result rows of both lanes,
+        mate 1's window lengths, ``m_col`` [B] int32, ``ref_plane`` and
+        ``query_plane`` [B, w_ins] uint8)."""
+        w1, w2 = tok1.width, tok2.width
+        main1, win1_16, tables1 = args1
+        main2, win2_16, tables2 = args2
+        rows1, win1, plane1 = self.lane1._core(
+            w1, bits1, main1, win1_16, luts1 if tables1 is None else tables1,
+            need_plane=True,
+        )
+        rows2, win2, plane2 = self.lane2._core(
+            w2, bits2, main2, win2_16, luts2 if tables2 is None else tables2,
+            need_plane=True,
+        )
+        w_ins = min(w1, w2)
+        # per-pair truncated length; ineligible pairs (below the
+        # insert-overlap floor) are zeroed so no candidates emerge
+        m_col = torch.minimum(win1, win2)
+        m_col = torch.where(
+            m_col >= self.cutter.min_insert_len, m_col, torch.zeros_like(m_col)
+        )
+        # reversal of the complemented mate 2 window = one gather
+        t = torch.arange(w_ins, device=m_col.device)
+        idx = (m_col.long()[:, None] - 1 - t[None, :]).clamp(0, w2 - 1)
+        ref_plane = plane2.gather(1, idx)  # [B, w_ins]
+        query_plane = plane1[:, :w_ins]
+        return rows1 + rows2, win1, m_col, ref_plane, query_plane
+
+    def _step(self, tok1, bits1, args1, luts1, tok2, bits2, args2, luts2,
+              kernel):
+        """The fused pair step: :meth:`_planes`, the diagonal counts, then
+        the candidate slots (window <= 255) or the counts plane; one int16
+        bundle out."""
+        rows, win1, m_col, ref_plane, query_plane = self._planes(
+            tok1, bits1, args1, luts1, tok2, bits2, args2, luts2
+        )
+        w_ins = query_plane.shape[1]
+        counts = kernel(
+            ref_plane.T.contiguous(), query_plane.T.contiguous(), m_col
+        )
+        if w_ins <= insert_kernel.PACKED_MAX_W:
+            # on-device candidate reconstruction: only the fixed-size
+            # candidate stream crosses the link, not the counts plane
+            slots, meta = insert_candidate_slots(
+                counts, m_col, ref_plane, query_plane, self._step_table,
+                self.matcher.min_overlap, self.matcher.max_matches,
+            )
+            rows += [slots, meta]
+        else:
+            rows.append(counts.to(torch.int32))
+        return _MateLane._finish_bundle(rows, win1)
+
+    # -- resolve --------------------------------------------------------------
+
+    def _fetch(self, ptok):
+        """The pair's bundle as an int32 array, once its event has passed;
+        both mates' slots go back to their lanes' free lists."""
+        if ptok.event is not None:
+            began = time.perf_counter()
+            ptok.event.synchronize()
+            self.wait_seconds += time.perf_counter() - began
+        arr = ptok.bundle.numpy().astype(np.int32)
+        ptok.bundle = None
+        for lane, tok in ((self.lane1, ptok.tok1), (self.lane2, ptok.tok2)):
+            if tok.slot is not None:
+                lane._free_slots.append(tok.slot)
+                tok.slot = None
+        return arr
+
+    def resolve(self, ptok):
+        """Wait for the fused bundle; produce final per-mate windows +
+        matched flags, accumulating every InsertAdapterCutter statistic
+        exactly as the scalar pipeline would."""
+        tok1, tok2 = ptok.tok1, ptok.tok2
+        batch = tok1.batch
+        arr = self._fetch(ptok)[:, :batch]
+        lane1, lane2 = self.lane1, self.lane2
+
+        rpa1 = lane1.res_rows(tok1.width)
+        rpa2 = lane2.res_rows(tok2.width)
+        cursor = rpa1 + rpa2
+        # the quality windows were applied at submit (host-native path)
+        ks1, kp1 = tok1.keep_start, tok1.keep_stop
+        ks2, kp2 = tok2.keep_start, tok2.keep_stop
+        w_ins = min(tok1.width, tok2.width)
+        if w_ins <= insert_kernel.PACKED_MAX_W:
+            n_slots = INSERT_CANDIDATE_SLOTS
+            vals = arr[cursor : cursor + n_slots] + 32768
+            meta = arr[cursor + n_slots : cursor + n_slots + 3]
+            has_final = meta[1] >= 512
+            cd = dict(
+                kind="slots",
+                s=(vals & 0xFF) - 1,
+                cnt=vals >> 8,
+                n_cand=meta[0],
+                final_ok=has_final,
+                final_s=meta[1] - np.where(has_final, 512, 0),
+                final_cnt=meta[2],
+            )
+        else:
+            cd = dict(kind="counts", counts=arr[cursor : cursor + w_ins])
+
+        wl1 = kp1 - ks1
+        wl2 = kp2 - ks2
+        res1 = self._mate_res(lane1, arr[0:rpa1], wl1)
+        res2 = self._mate_res(lane2, arr[rpa1 : rpa1 + rpa2], wl2)
+
+        sel = self._select(cd, tok1, tok2, wl1, wl2)
+        m1, m2 = self._combine(sel, res1, res2, wl1, wl2)
+        for tok, mate, ks, wl in ((tok1, m1, ks1, wl1), (tok2, m2, ks2, wl2)):
+            tok.win_start = ks
+            tok.win_stop = (ks + wl).astype(np.int32)
+            tok.match_data = dict(
+                matched=mate["present"],
+                best_idx=np.where(mate["present"], 0, -1),
+                astart=mate["astart"],
+                astop=mate["astop"],
+                rstart=mate["rstart"],
+                rstop=mate["rstop"],
+                errors=mate["errors"],
+                front=np.zeros(tok.batch, bool),
+            )
+        kp1 = self._apply_mate(lane1, tok1, m1, ks1, wl1, 0)
+        kp2 = self._apply_mate(lane2, tok2, m2, ks2, wl2, 1)
+        return ks1, kp1, m1["present"], ks2, kp2, m2["present"]
+
+    @staticmethod
+    def _mate_res(lane, rows, wl):
+        """The mate's fallback adapter result with match_to validation
+        (in-kernel overlap/error gates + the host max_rmp gate)."""
+        if rows.shape[0] == 3:
+            res = _MateLane._unpack_res_rows(rows)
+        else:
+            res = dict(
+                found=rows[0].astype(bool),
+                start1=rows[1],
+                stop1=rows[2],
+                start2=rows[3],
+                stop2=rows[4],
+                matches=rows[5],
+                cost=rows[6],
+            )
+        res["found"] = res["found"] & (wl > 0)
+        return lane._validate(0, res)
+
+    def _rmp_bulk(self, matches, size, base_probs=None):
+        """Vectorized RandomMatchProbability over unique (matches, size)
+        pairs — the same cached float64 scalar evaluator, so the decisions
+        are the reference's bit for bit."""
+        out = np.empty(matches.shape[0], np.float64)
+        prob_fn = self.aligner.match_probability
+        kwargs = base_probs or {}
+        keys = matches * (1 << 20) + size
+        for key in np.unique(keys):
+            kmatches, ksize = divmod(int(key), 1 << 20)
+            out[keys == key] = prob_fn(kmatches, ksize, **kwargs)
+        return out
+
+    def _overhang(self, tok, rows_b, starts, lens, ad_raw, ad_t):
+        """Vectorized compare_prefixes of each pair's adapter overhang
+        (window bytes from ``starts``, ``lens`` long) vs the adapter."""
+        count = rows_b.shape[0]
+        cap = int(lens.max()) if count else 0
+        if cap == 0:
+            zeros = np.zeros(count, np.int64)
+            return zeros, zeros
+        tt = np.arange(cap, dtype=np.int64)[None, :]
+        gidx = np.clip(starts[:, None] + tt, 0, tok.width - 1)
+        sub = tok.seqs[: tok.batch][rows_b]
+        window = np.take_along_axis(sub, gidx, axis=1)
+        valid = tt < lens[:, None]
+        if self._cmp_ascii:
+            eq = window == ad_raw[None, :cap]
+        else:
+            eq = (self._ref_lut[window] & ad_t[None, :cap]) != 0
+        matches = (eq & valid).sum(axis=1).astype(np.int64)
+        return lens - matches, matches
+
+    def _host_planes(self, tok1, tok2, m_eff, w_ins):
+        """Host byte planes equal to the device matcher's inputs (ref =
+        reversed complemented mate 2 window, query = mate 1)."""
+        batch = tok1.batch
+        comp2 = self._complement[tok2.seqs[:batch]]
+        t = np.arange(w_ins)
+        idx = np.clip(m_eff[:, None] - 1 - t[None, :], 0, tok2.width - 1)
+        refs = np.take_along_axis(comp2[:, : tok2.width], idx, axis=1)
+        refs = np.where(t[None, :] < m_eff[:, None], refs, 0).astype(np.uint8)
+        query = np.ascontiguousarray(tok1.seqs[:batch, :w_ins])
+        return refs, query
+
+    def _assemble_candidates(self, cd, tok1, tok2, m_eff, w_ins):
+        """The per-pair candidate stream as flat arrays (s, pair,
+        stream-rank, match count, is_final), from either the device slots
+        (overflow pairs recomputed on the host) or a full counts plane."""
+        if cd["kind"] == "counts":
+            counts = cd["counts"]
+            refs, query = self._host_planes(tok1, tok2, m_eff, w_ins)
+            arrs = self.matcher.candidate_arrays(counts, refs, query, m_eff)
+            ss, bs = np.nonzero(arrs["cand"])
+            fb = np.nonzero(arrs["final_ok"])[0]
+            fs = arrs["final_s"][fb]
+            s_list = [ss, fs]
+            b_list = [bs, fb]
+            r_list = [arrs["rank"][ss, bs], arrs["n_cand"][fb]]
+            mt_list = [counts[ss, bs], counts[fs, fb]]
+            fin_list = [np.zeros(ss.size, bool), np.ones(fb.size, bool)]
+        else:
+            n_slots = cd["s"].shape[0]
+            overflow = cd["n_cand"] > n_slots
+            present = (cd["s"] >= 0) & ~overflow[None, :]
+            cs, bs = np.nonzero(present)
+            f_mask = cd["final_ok"] & ~overflow
+            fb = np.nonzero(f_mask)[0]
+            s_list = [cd["s"][cs, bs], cd["final_s"][fb]]
+            b_list = [bs, fb]
+            r_list = [cs, cd["n_cand"][fb]]
+            mt_list = [cd["cnt"][cs, bs], cd["final_cnt"][fb]]
+            fin_list = [np.zeros(cs.size, bool), np.ones(fb.size, bool)]
+            orows = np.nonzero(overflow)[0]
+            if orows.size:
+                SLOT_OVERFLOWS["pairs"] += int(orows.size)
+                refs, query = self._host_planes(tok1, tok2, m_eff, w_ins)
+                refs_o = refs[orows]
+                query_o = query[orows]
+                m_o = m_eff[orows]
+                # the plain diagonal counts, on the host (m_eff <= w_ins,
+                # so its rotation never wraps)
+                counts_o = _diagonal_match_counts(
+                    torch.from_numpy(refs_o.T), torch.from_numpy(query_o.T),
+                    torch.from_numpy(m_o),
+                ).numpy()
+                arrs = self.matcher.candidate_arrays(
+                    counts_o, refs_o, query_o, m_o
+                )
+                ss2, bs2 = np.nonzero(arrs["cand"])
+                fb2 = np.nonzero(arrs["final_ok"])[0]
+                fs2 = arrs["final_s"][fb2]
+                s_list += [ss2, fs2]
+                b_list += [orows[bs2], orows[fb2]]
+                r_list += [arrs["rank"][ss2, bs2], arrs["n_cand"][fb2]]
+                mt_list += [counts_o[ss2, bs2], counts_o[fs2, fb2]]
+                fin_list += [
+                    np.zeros(ss2.size, bool), np.ones(fb2.size, bool),
+                ]
+        s_all = np.concatenate(s_list).astype(np.int64)
+        b_all = np.concatenate(b_list).astype(np.int64)
+        rank_all = np.concatenate(r_list).astype(np.int64)
+        mt = np.concatenate(mt_list).astype(np.int64)
+        is_final = np.concatenate(fin_list)
+        return s_all, b_all, rank_all, mt, is_final
+
+    def _select(self, cd, tok1, tok2, wl1, wl2):
+        """Per-pair insert-candidate selection: RMP filter, sort by
+        probability (stream order on ties), first candidate surviving
+        the overhang-adapter checks wins (``match_insert`` semantics)."""
+        batch = tok1.batch
+        aligner = self.aligner
+        w_ins = min(tok1.width, tok2.width)
+        out = dict(
+            has=np.zeros(batch, bool),
+            only=np.zeros(batch, bool),
+            ims=np.zeros(batch, np.int64),
+            mm=np.zeros(batch, np.int64),
+            alen1=np.zeros(batch, np.int64),
+            alen2=np.zeros(batch, np.int64),
+        )
+        m = np.minimum(wl1, wl2).astype(np.int64)
+        out["eligible"] = eligible = m >= self.cutter.min_insert_len
+        m_eff = np.where(eligible, m, 0)
+        if not m_eff.any():
+            return out
+
+        s_all, b_all, rank_all, mt, is_final = self._assemble_candidates(
+            cd, tok1, tok2, m_eff, w_ins
+        )
+        if s_all.size == 0:
+            return out
+        m_all = m_eff[b_all]
+        qstop = np.where(is_final, m_all, m_all - s_all)
+        offset = np.minimum(s_all, m_all - qstop)
+        ims = m_all - offset
+        prob = self._rmp_bulk(mt, ims, aligner.base_probs)
+        keep = prob <= aligner.insert_max_rmp
+        if not keep.any():
+            return out
+        b_all, rank_all, offset, ims, prob = (
+            a[keep] for a in (b_all, rank_all, offset, ims, prob)
+        )
+
+        # _match evaluation per candidate (align/__init__.py:240-284)
+        only = offset < aligner.min_adapter_overlap
+        alen1 = np.minimum(offset, aligner.adapter1_len)
+        alen2 = np.minimum(offset, aligner.adapter2_len)
+        e1, mt1 = self._overhang(tok1, b_all, ims, alen1, self._ad1, self._ad1_t)
+        e2, mt2 = self._overhang(tok2, b_all, ims, alen2, self._ad2, self._ad2_t)
+        frac = aligner.max_adapter_mismatch_frac
+        fail = (e1 > np.round(alen1 * frac)) & (e2 > np.round(alen2 * frac))
+        check = np.minimum(alen1, alen2) > aligner.adapter_check_cutoff
+        if check.any():
+            p1 = self._rmp_bulk(mt1, alen1)
+            p2 = self._rmp_bulk(mt2, alen2)
+            fail |= check & ((p1 * p2) > aligner.adapter_max_rmp)
+        ok = only | ~fail
+        if not ok.any():
+            return out
+
+        # first surviving candidate per pair in (prob, stream) order
+        order = np.lexsort((rank_all, prob, b_all))
+        b_sorted = b_all[order]
+        ok_pos = np.nonzero(ok[order])[0]
+        first = np.full(batch, -1, np.int64)
+        first[b_sorted[ok_pos[::-1]]] = ok_pos[::-1]
+        has = first >= 0
+        rowsel = order[first[has]]
+        out["has"] = has
+        out["only"][has] = only[rowsel]
+        out["ims"][has] = ims[rowsel]
+        out["mm"][has] = np.minimum(e1, e2)[rowsel]
+        out["alen1"][has] = alen1[rowsel]
+        out["alen2"][has] = alen2[rowsel]
+        return out
+
+    def _combine(self, sel, res1, res2, wl1, wl2):
+        """Selection + fallback + symmetric duplication -> per-mate match
+        field arrays (InsertAdapterCutter.__call__ flow)."""
+        batch = wl1.shape[0]
+        has = sel["has"]
+        ipass = has & ~sel["only"]
+
+        def blank():
+            zero = np.zeros(batch, np.int64)
+            return dict(
+                present=np.zeros(batch, bool),
+                rstart=zero.copy(),
+                rstop=zero.copy(),
+                astart=zero.copy(),
+                astop=zero.copy(),
+                errors=zero.copy(),
+            )
+
+        m1, m2 = blank(), blank()
+        # insert-path matches (_create_match, modifiers.py:274-278)
+        for mate, alen_key, wl in ((m1, "alen1", wl1), (m2, "alen2", wl2)):
+            ims = sel["ims"]
+            alen_eff = np.minimum(sel[alen_key], wl - ims)
+            errors = np.minimum(alen_eff, sel["mm"])
+            if ipass.any():
+                # Match invariants (align Match.__init__), scalar parity
+                if (alen_eff[ipass] <= 0).any():
+                    raise ValueError("Match length must be >= 0")
+                if ((alen_eff - errors)[ipass] <= 0).any():
+                    raise ValueError(
+                        "A Match requires at least one matching position."
+                    )
+            mate["present"] = ipass.copy()
+            mate["rstart"] = np.where(ipass, ims, 0)
+            mate["rstop"] = np.where(ipass, wl, 0)
+            mate["astop"] = np.where(ipass, alen_eff, 0)
+            mate["errors"] = np.where(ipass, errors, 0)
+
+        # fallback independent matches for pairs without an insert result
+        fallback = (~has) & sel["eligible"]
+        for mate, res in ((m1, res1), (m2, res2)):
+            fpres = fallback & res["found"]
+            mate["present"] |= fpres
+            for field, src in (
+                ("rstart", "start2"), ("rstop", "stop2"),
+                ("astart", "start1"), ("astop", "stop1"),
+                ("errors", "cost"),
+            ):
+                mate[field] = np.where(fpres, res[src], mate[field])
+
+        # symmetric duplication (_mirror_match, modifiers.py:228-238)
+        if self.cutter.symmetric:
+            mir12 = m1["present"] & ~m2["present"]
+            mir21 = m2["present"] & ~m1["present"]
+            for src, dst, wl_dst, mir in (
+                (m1, m2, wl2, mir12), (m2, m1, wl1, mir21),
+            ):
+                ok = mir & (src["rstart"] <= wl_dst)
+                shrink = ok & (src["rstop"] < wl_dst)
+                dst["present"] |= ok
+                dst["rstart"] = np.where(ok, src["rstart"], dst["rstart"])
+                dst["rstop"] = np.where(
+                    ok, np.where(shrink, wl_dst, src["rstop"]), dst["rstop"]
+                )
+                dst["astart"] = np.where(ok, src["astart"], dst["astart"])
+                dst["astop"] = np.where(
+                    ok,
+                    np.where(
+                        shrink,
+                        src["astop"] - (wl_dst - src["rstop"]),
+                        src["astop"],
+                    ),
+                    dst["astop"],
+                )
+                dst["errors"] = np.where(ok, src["errors"], dst["errors"])
+        return m1, m2
+
+    def _apply_mate(self, lane, tok, mate, ks, wl, mate_idx):
+        """_trim_mate per mate: trim window + adapter statistics
+        (modifiers.py:292-314; Adapter._trimmed_back)."""
+        present = mate["present"]
+        self.cutter.with_adapters[mate_idx] += int(present.sum())
+        trim = present & (mate["rstart"] < wl)
+        if trim.any():
+            adapter = lane.adapters[0]
+            rstart = mate["rstart"][trim]
+            removed = (wl[trim] - rstart).astype(np.int64)
+            lane._bump_histograms(
+                adapter.lengths_back, adapter.errors_back,
+                removed, mate["errors"][trim],
+            )
+            rows = np.nonzero(trim)[0]
+            prev = np.where(
+                rstart > 0,
+                tok.seqs[rows, np.maximum(rstart - 1, 0)],
+                0,
+            )
+            for byte, cnt in zip(*np.unique(prev, return_counts=True)):
+                base = chr(int(byte))
+                if base not in "ACGT":
+                    base = ""
+                adapter.adjacent_bases[base] += int(cnt)
+        return np.where(trim, ks + mate["rstart"], ks + wl).astype(np.int32)
+
+
+def _gather_name_bytes(chunk, sub, width):
+    offs = np.ascontiguousarray(chunk.name_off[sub], np.int64)
+    lens = np.ascontiguousarray(chunk.name_len[sub], np.int32)
+    out = np.zeros((offs.shape[0], width), np.uint8)
+    runtime.lib().gather_padded(
+        _u8(chunk.buf), _i64(offs), _i32(lens),
+        offs.shape[0], width, _u8(out),
+    )
+    return out, lens
+
+
+def validate_pair_names(chunk1, sub1, chunk2, sub2, interleaved=False):
+    """Vectorized twin of ``seqio.sequence_names_match`` over whole
+    record ranges: first whitespace-delimited token, ignoring a trailing
+    1/2 mate digit; raises the scalar reader's FormatError on the first
+    improperly-paired record."""
+    width = int(
+        max(
+            chunk1.name_len[sub1].max(initial=1),
+            chunk2.name_len[sub2].max(initial=1),
+        )
+    )
+    a1, len1 = _gather_name_bytes(chunk1, sub1, width)
+    a2, len2 = _gather_name_bytes(chunk2, sub2, width)
+    idx = np.arange(width, dtype=np.int32)[None, :]
+
+    def token_len(arr, lens):
+        ws = ((arr == 32) | (arr == 9)) & (idx < lens[:, None])
+        has = ws.any(axis=1)
+        first = np.where(has, ws.argmax(axis=1), lens)
+        return first.astype(np.int32)
+
+    t1 = token_len(a1, len1)
+    t2 = token_len(a2, len2)
+    diff = a1 != a2
+    has_diff = diff.any(axis=1)
+    mismatch_at = np.where(has_diff, diff.argmax(axis=1), width)
+    ok_full = (t1 == t2) & (mismatch_at >= t1)
+    last1 = a1[np.arange(a1.shape[0]), np.maximum(t1 - 1, 0)]
+    last2 = a2[np.arange(a2.shape[0]), np.maximum(t2 - 1, 0)]
+    both_12 = (
+        (t1 > 0) & (t2 > 0)
+        & ((last1 == ord("1")) | (last1 == ord("2")))
+        & ((last2 == ord("1")) | (last2 == ord("2")))
+    )
+    ok_strip = both_12 & (t1 == t2) & (mismatch_at >= t1 - 1)
+    bad = ~(ok_full | ok_strip)
+    if bad.any():
+        row = int(np.nonzero(bad)[0][0])
+        name1 = a1[row, : len1[row]].tobytes().decode("latin-1")
+        name2 = a2[row, : len2[row]].tobytes().decode("latin-1")
+        if interleaved:
+            raise FormatError(
+                "Reads are improperly paired. Name {0!r} (first) does "
+                "not match {1!r} (second).".format(name1, name2)
+            )
+        raise FormatError(
+            "Reads are improperly paired. Read name '{0}' in file 1 "
+            "does not match '{1}' in file 2.".format(name1, name2)
+        )
+
+
+def _record_byte_lengths(chunk, sub, keep_start, keep_stop, keep, fmt):
+    """Per-record output byte length for the KEPT records, matching the
+    native formatters' layout exactly."""
+    name_len = chunk.name_len[sub][keep].astype(np.int64)
+    klen = np.maximum(keep_stop - keep_start, 0)[keep].astype(np.int64)
+    plus_len = chunk.plus_len[sub][keep].astype(np.int64)
+    if fmt == "fasta":
+        return 2 + name_len + klen + 1
+    return 4 + name_len + 2 * klen + plus_len + 2
+
+
+def _interleave_records(parts1, parts2):
+    """Merge two formatted byte streams record-alternately: (bytes,
+    per-record lengths) per mate in, interleaved bytes out (one ranges
+    gather, no per-record Python)."""
+    (b1, l1), (b2, l2) = parts1, parts2
+    count = l1.shape[0]
+    if count == 0:
+        return b""
+    src = np.frombuffer(b1 + b2, np.uint8)
+    starts = np.empty(2 * count, np.int64)
+    starts[0::2] = np.cumsum(l1) - l1
+    starts[1::2] = len(b1) + np.cumsum(l2) - l2
+    sizes = np.empty(2 * count, np.int64)
+    sizes[0::2] = l1
+    sizes[1::2] = l2
+    total = int(sizes.sum())
+    pos = np.repeat(np.cumsum(sizes) - sizes, sizes)
+    idx = np.arange(total, dtype=np.int64) - pos + np.repeat(starts, sizes)
+    return src[idx].tobytes()
+
+
 def _format_records(chunk, sub, keep_start, keep_stop, keep, fmt="fastq"):
     """Native formatter: trimmed FASTQ/FASTA bytes for the kept records."""
     name_off = np.ascontiguousarray(chunk.name_off[sub])
@@ -1330,6 +2120,15 @@ class _TurboRunnerBase:
         return None
 
     @staticmethod
+    def _check_no_side_files(formatters):
+        if formatters.multiplexed:
+            raise NotPortedError("demultiplexed output", "side-files")
+        if formatters.info_formatters:
+            raise NotPortedError(
+                "info/rest/wildcard side files", "side-files"
+            )
+
+    @staticmethod
     def _stream_format(path, explicit=None):
         """The chunk-stream format ('fastq' or 'fasta') for a path, or
         None when the path is unusable (stdin/stdout, a demultiplex
@@ -1343,13 +2142,17 @@ class _TurboRunnerBase:
         return fmt if fmt in ("fastq", "fasta") else None
 
     @classmethod
-    def _collect_output_formats(cls, formatters):
+    def _collect_output_formats(cls, formatters, allow_interleaved=False):
         """{path: format} for every destination formatter (main output
         plus untrimmed / too-short / too-long files), or a decline-reason
         string. The format comes from the formatter the trim stack
         already holds (so extension-less paths like /dev/null work
-        exactly like the scalar writers)."""
+        exactly like the scalar writers). Also rejects one path serving
+        different mate roles (per-batch grouped writes could not reproduce
+        the scalar byte interleaving then); interleaved formatters (both
+        mates, one file, record-alternating) are tracked by role 3."""
         fmts = {}
+        role_of = {}
         for formatter in formatters.seq_formatters.values():
             fmt_obj = formatter.seq_format
             if type(fmt_obj) is FastqFormat:
@@ -1361,10 +2164,23 @@ class _TurboRunnerBase:
                 fmt = "fasta"
             else:
                 return "unsupported output format"
-            path = formatter.file1
-            if not path or not isinstance(path, str) or path == "-":
-                return "stdout/non-path output"
-            fmts[path] = fmt
+            if isinstance(formatter, InterleavedFormatter):
+                if not allow_interleaved:
+                    return "interleaved output"
+                roles = [(formatter.file1, 3)]
+            else:
+                roles = [(formatter.file1, 1)]
+                file2 = getattr(formatter, "file2", None)
+                if file2 is not None:
+                    roles.append((file2, 2))
+            for path, role in roles:
+                if not path or not isinstance(path, str) or path == "-":
+                    return "stdout/non-path output"
+                fmts[path] = fmt
+                if path != os.devnull and (
+                    role_of.setdefault(path, role) != role
+                ):
+                    return "one path used for both mates"
         return fmts
 
     def _fmt_of(self, path):
@@ -1417,8 +2233,8 @@ class TurboTrimRunner(_TurboRunnerBase):
         """Return a runner for a turbo-eligible configuration; raise
         :class:`~atropos_tpu_torch.NotPortedError` for every other."""
         options = command_runner.options
-        if options.paired or options.input2 or options.interleaved_input:
-            raise NotPortedError("paired-end trimming", "paired")
+        if options.paired or options.interleaved_input:
+            raise ValueError("paired input goes to TurboPairedRunner")
         reason = cls._check_common(command_runner, record_handler)
         if reason:
             return cls._decline(reason)
@@ -1428,14 +2244,8 @@ class TurboTrimRunner(_TurboRunnerBase):
         in_fmt = cls._stream_format(input1, options.format)
         if in_fmt is None:
             return cls._decline("unsupported input format")
-        formatters = record_handler.formatters
-        if formatters.multiplexed:
-            raise NotPortedError("demultiplexed output", "side-files")
-        if formatters.info_formatters:
-            raise NotPortedError(
-                "info/rest/wildcard side files", "side-files"
-            )
-        out_fmts = cls._collect_output_formats(formatters)
+        cls._check_no_side_files(record_handler.formatters)
+        out_fmts = cls._collect_output_formats(record_handler.formatters)
         if isinstance(out_fmts, str):
             return cls._decline(out_fmts)
 
@@ -1594,3 +2404,410 @@ class TurboTrimRunner(_TurboRunnerBase):
                 ),
             )
 
+
+
+class TurboPairedRunner(_TurboRunnerBase):
+    """Streaming interval-based trim for eligible paired-end configs:
+    two :class:`_MateLane`s fed by two synchronized chunk streams (or one
+    interleaved stream), vectorized pair filters, two outputs or one
+    interleaved output.
+
+    Covers BOTH aligners: independent per-mate adapter matching (each
+    lane its own device step), and insert-align (``--aligner insert``)
+    via :class:`_InsertPair` (one fused device step per pair batch).
+    """
+
+    @classmethod
+    def build(cls, command_runner, record_handler, writers, device=None):
+        """Return a runner for a turbo-eligible paired configuration;
+        raise :class:`~atropos_tpu_torch.NotPortedError` for every
+        other."""
+        options = command_runner.options
+        if not options.paired:
+            raise ValueError("single-end input goes to TurboTrimRunner")
+        reason = cls._check_common(command_runner, record_handler)
+        if reason:
+            return cls._decline(reason)
+        if options.interleaved_input:
+            if not isinstance(options.interleaved_input, str):
+                return cls._decline("non-path interleaved input")
+            in_fmt1 = in_fmt2 = cls._stream_format(
+                options.interleaved_input, options.format
+            )
+            if in_fmt1 is None:
+                return cls._decline("unsupported interleaved input format")
+        else:
+            input1, input2 = options.input1, options.input2
+            if (
+                not input1 or not input2
+                or not isinstance(input1, str) or not isinstance(input2, str)
+            ):
+                return cls._decline("non-path paired input")
+            in_fmt1 = cls._stream_format(input1, options.format)
+            in_fmt2 = cls._stream_format(input2, options.format)
+            if in_fmt1 is None or in_fmt2 is None:
+                return cls._decline("unsupported paired input format")
+        cls._check_no_side_files(record_handler.formatters)
+        out_fmts = cls._collect_output_formats(
+            record_handler.formatters, allow_interleaved=True
+        )
+        if isinstance(out_fmts, str):
+            return cls._decline(out_fmts)
+
+        mods1, mods2 = [], []
+        insert_cutter = None
+        for entry in record_handler.modifiers.modifiers:
+            if isinstance(entry, InsertAdapterCutter):
+                if insert_cutter is not None:
+                    return cls._decline("multiple insert cutters")
+                insert_cutter = entry
+                continue
+            if isinstance(entry, ReadPairModifier):
+                return cls._decline("pair modifier %s" % type(entry).__name__)
+            if entry[0] is not None:
+                mods1.append(entry[0])
+            if entry[1] is not None:
+                mods2.append(entry[1])
+        insert_pair = None
+        if insert_cutter is not None:
+            lane1 = _MateLane.from_modifier_list(
+                mods1, insert_adapter=insert_cutter.adapter1, insert_role=1,
+                device=device,
+            )
+            if isinstance(lane1, str):
+                return cls._decline(lane1)
+            lane2 = _MateLane.from_modifier_list(
+                mods2, insert_adapter=insert_cutter.adapter2, insert_role=2,
+                device=device,
+            )
+            if isinstance(lane2, str):
+                return cls._decline(lane2)
+            insert_pair = _InsertPair(lane1, lane2, insert_cutter)
+        else:
+            lane1 = _MateLane.from_modifier_list(mods1, device=device)
+            if isinstance(lane1, str):
+                return cls._decline(lane1)
+            lane2 = _MateLane.from_modifier_list(mods2, device=device)
+            if isinstance(lane2, str):
+                return cls._decline(lane2)
+        if "fasta" in (in_fmt1, in_fmt2):
+            if lane1._needs_quals or lane2._needs_quals:
+                return cls._decline("quality stage without qualities")
+        return cls(
+            command_runner, record_handler, writers, lane1, lane2,
+            insert_pair, (in_fmt1, in_fmt2), out_fmts,
+        )
+
+    def __init__(self, command_runner, record_handler, writers, lane1, lane2,
+                 insert_pair=None, in_fmts=("fastq", "fastq"),
+                 out_fmts=None):
+        self.command_runner = command_runner
+        self.options = command_runner.options
+        self.record_handler = record_handler
+        self.writers = writers
+        self.lane1 = lane1
+        self.lane2 = lane2
+        self.insert_pair = insert_pair
+        self._in_fmts = in_fmts
+        self._out_fmts = dict(out_fmts or {})
+
+    # -- main loop ------------------------------------------------------------
+
+    def run(self):
+        options = self.options
+        logging.getLogger().info(
+            "Running turbo paired device trim pipeline on %s", self.lane1.device
+        )
+        began = time.perf_counter()
+        if options.interleaved_output:
+            self._open_output(options.interleaved_output)
+        else:
+            self._open_output(options.output)
+            self._open_output(options.paired_output)
+
+        self._total_pairs = 0
+        self._bp = [0, 0]
+        self._batches = 0
+        self._inflight = collections.deque()
+        self._writer = _AsyncWriter()
+        self._resolve_seconds = 0.0
+        self._chunk_wait = 0.0
+        self._streams = []
+        overflows = SLOT_OVERFLOWS["pairs"]
+        quota = int_or_str(options.max_reads) or None
+        if options.interleaved_input:
+            self._pump_interleaved(quota)
+        else:
+            self._pump_two_files(quota)
+        while self._inflight:
+            self._resolve_item(self._inflight.popleft())
+        self._writer.close()
+
+        self._update_counts(self._total_pairs, tuple(self._bp))
+        self.writers.close()
+        lanes = (self.lane1, self.lane2)
+        insert = self.insert_pair
+        if insert is not None:
+            prepare = insert.prepare_seconds
+            dispatch = insert.dispatch_seconds
+            wait = insert.wait_seconds
+            device_batches = insert.device_batches
+        else:
+            prepare = sum(lane.prepare_seconds for lane in lanes)
+            dispatch = sum(lane.dispatch_seconds for lane in lanes)
+            wait = sum(lane.wait_seconds for lane in lanes)
+            device_batches = sum(lane.device_batches for lane in lanes)
+        LAST_RUN.clear()
+        LAST_RUN.update(
+            device=str(self.lane1.device),
+            pairs=self._total_pairs,
+            batches=self._batches,
+            aligner="insert" if insert is not None else "adapter",
+            device_batches=device_batches,
+            device_aligners=sum(len(lane._aligners) for lane in lanes),
+            slot_overflow_pairs=SLOT_OVERFLOWS["pairs"] - overflows,
+            wall_seconds=time.perf_counter() - began,
+            parse_seconds=sum(stream.seconds for stream in self._streams),
+            chunk_wait_seconds=self._chunk_wait,
+            prepare_seconds=prepare,
+            dispatch_seconds=dispatch,
+            device_wait_seconds=wait,
+            resolve_seconds=self._resolve_seconds - wait,
+            format_seconds=self._writer.format_seconds,
+            write_seconds=self._writer.write_seconds,
+        )
+        return 0
+
+    def _open_stream(self, path, fmt):
+        source = _ChunkStream(path, self.CHUNK_BYTES, fmt)
+        self._streams.append(source)
+        return _PrefetchStream(source, self.PREFETCH)
+
+    def _next_chunk(self, stream):
+        waited = time.perf_counter()
+        chunk = stream.next_chunk()
+        self._chunk_wait += time.perf_counter() - waited
+        return chunk
+
+    def _submit_pair(self, chunk1, sub1, chunk2, sub2):
+        """Submit one pair batch; drain the pipeline window."""
+        lens1 = chunk1.seq_len[sub1]
+        self._total_pairs += lens1.shape[0]
+        self._bp[0] += int(lens1.sum())
+        self._bp[1] += int(chunk2.seq_len[sub2].sum())
+        self._batches += 1
+        if self.insert_pair is not None:
+            self._inflight.append(
+                self.insert_pair.submit(chunk1, sub1, chunk2, sub2)
+            )
+        else:
+            tok1 = self.lane1.submit(chunk1, sub1)
+            tok2 = self.lane2.submit(chunk2, sub2)
+            self._inflight.append((tok1, tok2))
+        while len(self._inflight) >= self.DEPTH:
+            self._resolve_item(self._inflight.popleft())
+
+    def _pump_two_files(self, quota):
+        options = self.options
+        s1 = self._open_stream(options.input1, self._in_fmts[0])
+        s2 = self._open_stream(options.input2, self._in_fmts[1])
+        seen_pairs = 0
+        cur1 = cur2 = None
+        pos1 = pos2 = 0
+        try:
+            while True:
+                if quota is not None and seen_pairs >= quota:
+                    break
+                if cur1 is None or pos1 == cur1.n:
+                    cur1 = self._next_chunk(s1)
+                    pos1 = 0
+                if cur2 is None or pos2 == cur2.n:
+                    cur2 = self._next_chunk(s2)
+                    pos2 = 0
+                if cur1 is None or cur2 is None:
+                    if (cur1 is None) != (cur2 is None):
+                        more, less = (2, 1) if cur1 is None else (1, 2)
+                        raise FormatError(
+                            "Reads are improperly paired. There are more "
+                            "reads in file {0} than in file {1}.".format(
+                                more, less
+                            )
+                        )
+                    break
+                take = min(cur1.n - pos1, cur2.n - pos2, self.MAX_BATCH)
+                if quota is not None:
+                    take = min(take, quota - seen_pairs)
+                seen_pairs += take
+                sub1 = slice(pos1, pos1 + take)
+                sub2 = slice(pos2, pos2 + take)
+                pos1 += take
+                pos2 += take
+                self._submit_pair(cur1, sub1, cur2, sub2)
+        finally:
+            s1.close()
+            s2.close()
+
+    def _pump_interleaved(self, quota):
+        """Single-stream pairing: even records are mate 1, odd mate 2
+        (strided subs within a chunk; a chunk-boundary odd tail pairs as
+        a one-pair batch with the next chunk's first record)."""
+        stream = self._open_stream(
+            self.options.interleaved_input, self._in_fmts[0]
+        )
+        seen_pairs = 0
+        leftover = None  # (chunk, record index) awaiting its partner
+        try:
+            while True:
+                if quota is not None and seen_pairs >= quota:
+                    return
+                chunk = self._next_chunk(stream)
+                if chunk is None:
+                    break
+                pos = 0
+                if leftover is not None:
+                    prev_chunk, prev_idx = leftover
+                    leftover = None
+                    self._submit_pair(prev_chunk, [prev_idx], chunk, [0])
+                    seen_pairs += 1
+                    pos = 1
+                while chunk.n - pos >= 2:
+                    if quota is not None and seen_pairs >= quota:
+                        return
+                    take = (chunk.n - pos) // 2
+                    take = min(take, self.MAX_BATCH)
+                    if quota is not None:
+                        take = min(take, quota - seen_pairs)
+                    sub1 = slice(pos, pos + 2 * take, 2)
+                    sub2 = slice(pos + 1, pos + 1 + 2 * take, 2)
+                    self._submit_pair(chunk, sub1, chunk, sub2)
+                    seen_pairs += take
+                    pos += 2 * take
+                if chunk.n - pos == 1:
+                    leftover = (chunk, pos)
+            if leftover is not None:
+                raise FormatError(
+                    "Interleaved input file incomplete: Last record has no "
+                    "partner."
+                )
+        finally:
+            stream.close()
+
+    # -- resolve: windows -> pair filters -> formatters ------------------------
+
+    def _resolve_item(self, item):
+        """Resolve one in-flight batch: either an insert-pair token or a
+        (tok1, tok2) per-mate pair."""
+        began = time.perf_counter()
+        try:
+            if self.insert_pair is not None:
+                tok1, tok2 = item.tok1, item.tok2
+                self._check_pair_names(tok1, tok2)
+                ks1, kp1, matched1, ks2, kp2, matched2 = (
+                    self.insert_pair.resolve(item)
+                )
+            else:
+                tok1, tok2 = item
+                self._check_pair_names(tok1, tok2)
+                ks1, kp1, matched1 = self.lane1.resolve_windows(tok1)
+                ks2, kp2, matched2 = self.lane2.resolve_windows(tok2)
+            ks1, kp1 = self.lane1.apply_post(tok1, ks1, kp1, matched1)
+            ks2, kp2 = self.lane2.apply_post(tok2, ks2, kp2, matched2)
+            self._finish_pair(tok1, tok2, ks1, kp1, matched1, ks2, kp2, matched2)
+        finally:
+            self._resolve_seconds += time.perf_counter() - began
+
+    def _check_pair_names(self, tok1, tok2):
+        validate_pair_names(
+            tok1.chunk, tok1.sub, tok2.chunk, tok2.sub,
+            interleaved=bool(self.options.interleaved_input),
+        )
+
+    def _finish_pair(self, tok1, tok2, ks1, kp1, matched1, ks2, kp2,
+                     matched2):
+        len1 = kp1 - ks1
+        len2 = kp2 - ks2
+
+        # pair filters in registration order (first match wins). The
+        # PairedWrapper combines per-mate criteria with min_affected
+        # (1 = any, 2 = both); legacy 'first' mode wraps SingleWrapper,
+        # which only inspects read1.
+        dest_none = np.ones(tok1.batch, bool)
+        dest_masks = []
+        for ftype, wrapper in self.record_handler.filters.filters.items():
+            c1 = self.lane1.criterion_hits(
+                ftype, wrapper, tok1, ks1, kp1, matched1
+            )
+            if isinstance(wrapper, PairedWrapper):
+                c2 = self.lane2.criterion_hits(
+                    ftype, wrapper, tok2, ks2, kp2, matched2
+                )
+                hit = (c1 | c2) if wrapper.min_affected == 1 else (c1 & c2)
+            else:
+                hit = c1
+            hit = dest_none & hit
+            wrapper.filtered += int(hit.sum())
+            dest_none &= ~hit
+            dest_masks.append((ftype, hit))
+
+        keep = dest_none
+        # per-destination routing (see the SE runner): dests with a
+        # SingleEndFormatter write mate 1 only — the scalar semantics when
+        # a side output was given without its paired counterpart
+        formatters = self.record_handler.formatters
+        masks1 = {}
+        masks2 = {}
+        masks_il = {}
+        for ftype, mask in dest_masks + [(NoFilter, keep)]:
+            formatter = formatters.seq_formatters.get(ftype)
+            count = int(mask.sum())
+            if formatter is None:
+                formatters.discarded += count
+                continue
+            formatter.written += count
+            formatter.read1_bp += int(len1[mask].sum())
+            interleaved = isinstance(formatter, InterleavedFormatter)
+            file2 = getattr(formatter, "file2", None)
+            if file2 is not None or interleaved:
+                formatter.read2_bp += int(len2[mask].sum())
+            if count:
+                table = masks_il if interleaved else masks1
+                prev = table.get(formatter.file1)
+                table[formatter.file1] = mask if prev is None else (prev | mask)
+                if file2 is not None:
+                    prev2 = masks2.get(file2)
+                    masks2[file2] = mask if prev2 is None else (prev2 | mask)
+
+        for tok, ks, kp, masks in (
+            (tok1, ks1, kp1, masks1), (tok2, ks2, kp2, masks2),
+        ):
+            for path, mask in masks.items():
+                self._writer.write(
+                    self._open_output(path),
+                    partial(
+                        _format_records,
+                        tok.chunk, tok.sub, ks, kp, mask,
+                        fmt=self._fmt_of(path),
+                    ),
+                )
+
+        def interleave(fmt, mask):
+            return _interleave_records(
+                (
+                    _format_records(tok1.chunk, tok1.sub, ks1, kp1, mask, fmt),
+                    _record_byte_lengths(
+                        tok1.chunk, tok1.sub, ks1, kp1, mask, fmt
+                    ),
+                ),
+                (
+                    _format_records(tok2.chunk, tok2.sub, ks2, kp2, mask, fmt),
+                    _record_byte_lengths(
+                        tok2.chunk, tok2.sub, ks2, kp2, mask, fmt
+                    ),
+                ),
+            )
+
+        for path, mask in masks_il.items():
+            self._writer.write(
+                self._open_output(path),
+                partial(interleave, self._fmt_of(path), mask),
+            )

@@ -1,4 +1,5 @@
-"""Sequence I/O: reading/writing FASTA, FASTQ, and SAM/BAM.
+"""Sequence I/O: reading/writing FASTA and FASTQ, single, paired or
+interleaved.
 
 Host-side record model and streaming readers. The record model keeps the
 reference's provenance semantics (``atropos/io/_seqio.pyx``): ``clipped``
@@ -477,6 +478,100 @@ class FastaReader(SequenceReader):
         )
 
 
+def sequence_names_match(read1, read2):
+    """Pair-name check ignoring a trailing 1/2 mate indicator."""
+    token1 = read1.name.split(None, 1)[0]
+    token2 = read2.name.split(None, 1)[0]
+    if token1[-1:] in "12" and token2[-1:] in "12":
+        return token1[:-1] == token2[:-1]
+    return token1 == token2
+
+
+class PairedSequenceReader(SequenceReaderBase):
+    """Reads from two files in lockstep, validating pairing."""
+
+    input_read = PAIRED
+    interleaved = False
+
+    def __init__(self, file1, file2, quality_base=33, colorspace=False, file_format=None, alphabet=None):
+        common = dict(
+            colorspace=colorspace, quality_base=quality_base,
+            file_format=file_format, alphabet=alphabet,
+        )
+        self.reader1 = open_reader(file1, **common)
+        self.reader2 = open_reader(file2, **common)
+
+    @property
+    def input_names(self):
+        return (self.reader1.input_names[0], self.reader2.input_names[0])
+
+    def __getattr__(self, name):
+        return getattr(self.reader1, name)
+
+    def __iter__(self):
+        from itertools import zip_longest
+
+        missing = object()
+        for read1, read2 in zip_longest(
+            self.reader1, self.reader2, fillvalue=missing
+        ):
+            if read1 is missing:
+                raise FormatError(
+                    "Reads are improperly paired. There are more reads in "
+                    "file 2 than in file 1."
+                )
+            if read2 is missing:
+                raise FormatError(
+                    "Reads are improperly paired. There are more reads in "
+                    "file 1 than in file 2."
+                )
+            if not sequence_names_match(read1, read2):
+                raise FormatError(
+                    "Reads are improperly paired. Read name '{0}' in file 1 "
+                    "does not match '{1}' in file 2.".format(read1.name, read2.name)
+                )
+            yield (read1, read2)
+
+    def close(self):
+        self.reader1.close()
+        self.reader2.close()
+
+
+class InterleavedSequenceReader(SequenceReaderBase):
+    """Read pairs from an interleaved file."""
+
+    input_read = PAIRED
+    interleaved = True
+
+    def __init__(self, path, quality_base=33, colorspace=False, file_format=None, alphabet=None):
+        self.reader = open_reader(
+            path, quality_base=quality_base, colorspace=colorspace,
+            file_format=file_format, alphabet=alphabet,
+        )
+
+    def __getattr__(self, name):
+        return getattr(self.reader, name)
+
+    def __iter__(self):
+        itr = iter(self.reader)
+        for read1 in itr:
+            read2 = next(itr, None)
+            if read2 is None:
+                raise FormatError(
+                    "Interleaved input file incomplete: Last record has no "
+                    "partner."
+                )
+            if not sequence_names_match(read1, read2):
+                raise FormatError(
+                    "Reads are improperly paired. Name {0!r} (first) does not "
+                    "match {1!r} (second).".format(read1.name, read2.name)
+                )
+            yield (read1, read2)
+
+    def close(self):
+        self.reader.close()
+
+
 # --------------------------------------------------------------------------
 # Output formats / formatters
 # --------------------------------------------------------------------------
@@ -532,6 +627,39 @@ class SingleEndFormatter:
         return (self.read1_bp, self.read2_bp)
 
 
+class InterleavedFormatter(SingleEndFormatter):
+    def format(self, result, read1, read2=None):
+        result[self.file1].extend(
+            (self.seq_format.format(read1), self.seq_format.format(read2))
+        )
+        self.written += 1
+        self.read1_bp += len(read1)
+        self.read2_bp += len(read2)
+
+
+class PairedEndFormatter(SingleEndFormatter):
+    def __init__(self, seq_format, file1, file2):
+        super().__init__(seq_format, file1)
+        self.file2 = file2
+
+    def format(self, result, read1, read2):
+        result[self.file1].append(self.seq_format.format(read1))
+        result[self.file2].append(self.seq_format.format(read2))
+        self.written += 1
+        self.read1_bp += len(read1)
+        self.read2_bp += len(read2)
+
+
+def paired_to_read1(reader):
+    for read1, _ in reader:
+        yield read1
+
+
+def paired_to_read2(reader):
+    for _, read2 in reader:
+        yield read2
+
+
 # --------------------------------------------------------------------------
 # Factories
 # --------------------------------------------------------------------------
@@ -572,17 +700,27 @@ def open_reader(
     alphabet=None,
 ):
     """Reader factory with format autodetection (by extension, then by
-    first content character). Single FASTA/FASTQ files only: paired,
-    interleaved, FASTA+qual, SAM/BAM, SRA and colorspace inputs raise
+    first content character). FASTA/FASTQ files, single, paired or
+    interleaved; FASTA+qual, SAM/BAM, SRA and colorspace inputs raise
     :class:`~atropos_tpu_torch.NotPortedError`."""
-    if file2 is not None or interleaved:
-        raise NotPortedError("paired-end input", "paired")
-    if qualfile is not None:
-        raise NotPortedError("FASTA + quality-file input", "engine")
+    if interleaved and (file2 is not None or qualfile is not None):
+        raise ValueError("When interleaved is set, file2 and qualfile must be None")
+    if file2 is not None and qualfile is not None:
+        raise ValueError("Setting both file2 and qualfile is not supported")
     if colorspace:
         raise NotPortedError("colorspace input", "engine")
 
     alphabet = _resolve_alphabet(alphabet)
+
+    if file2 is not None:
+        return PairedSequenceReader(
+            file1, file2, quality_base=quality_base,
+            colorspace=colorspace, file_format=file_format,
+            alphabet=alphabet,
+        )
+
+    if qualfile is not None:
+        raise NotPortedError("FASTA + quality-file input", "engine")
 
     if file_format is None and file1 != STDOUT:
         file_format = guess_format_from_name(file1)
@@ -597,6 +735,16 @@ def open_reader(
             raise NotPortedError(
                 "{} input".format(file_format.upper()), "engine"
             )
+        if interleaved:
+            reader = InterleavedSequenceReader(
+                file1, quality_base=quality_base, colorspace=colorspace,
+                file_format=file_format, alphabet=alphabet,
+            )
+            if input_read == READ1:
+                return paired_to_read1(reader)
+            if input_read == READ2:
+                return paired_to_read2(reader)
+            return reader
         if file_format == "fasta":
             return FastaReader(file1, alphabet=alphabet)
         if file_format == "fastq":
@@ -641,9 +789,11 @@ def guess_format_from_name(path, raise_on_failure=False):
 
 def create_seq_formatter(file1, file2=None, interleaved=False, **kwargs):
     """Formatter factory (format derived from file extension)."""
-    if file2 is not None or interleaved:
-        raise NotPortedError("paired-end output", "paired")
     seq_format = get_format(file1, **kwargs)
+    if file2 is not None:
+        return PairedEndFormatter(seq_format, file1, file2)
+    if interleaved:
+        return InterleavedFormatter(seq_format, file1)
     return SingleEndFormatter(seq_format, file1)
 
 

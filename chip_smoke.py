@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Start the port on the GPU: build, check and time its kernels, and drive
-its main path end to end.
+its single-end and paired-end paths end to end.
 
 Run from the root of a checkout, with one NVIDIA Hopper card:
 
@@ -10,25 +10,39 @@ It imports ``atropos_tpu_torch`` only (never ``jax``, never ``atropos_tpu``)
 and prints one JSON object a line:
 
 1. ``device``   the card's name and power limit as ``nvidia-smi`` gives them
-2. ``build``    seconds for ``nvcc`` (the DP kernels) and ``g++`` (the host
-                runtime), built in parallel from the sources in the checkout
+2. ``build``    seconds for ``nvcc`` (the DP kernels, the diagonal-count
+                kernels) and ``g++`` (the host runtime), all built in
+                parallel from the sources in the checkout
 3. ``grid``     ``dp_locate_word32`` and ``dp_locate_wide`` against the plain
-                PyTorch DP on the card over a covering set of configurations:
-                exact equality of all result rows (tolerance 0, integers)
-4. ``main_path``  a seeded FASTQ of 2,000,000 reads of 150 bases through
+                PyTorch DP on the card over a covering set of configurations
+                (indel costs 1, 2, 3 and 100000; adapters of 1,200 and 2,000
+                bases whose column lives in global memory): exact equality
+                of all result rows (tolerance 0, integers)
+4. ``diag_grid``  ``diag_counts_u8`` and ``diag_counts_i32`` against their
+                plain version over windows up to 301 and two alphabets
+5. ``main_path``  a seeded FASTQ of 2,000,000 reads of 150 bases through
                 ``python -m atropos_tpu_torch trim -a TRUSEQ -se IN -o OUT`` on
                 ``cuda``; this path launches ``dp_locate_word32``
-5. ``long_path``  a seeded FASTA of 8-kilobase reads against an 880-base
+6. ``long_path``  a seeded FASTA of 8-kilobase reads against an 880-base
                 vector at 30 % errors through the same entry point; the cell
                 of this shape needs more than 32 bits, so this path launches
                 ``dp_locate_wide``
-6. ``goldens``  five upstream single-end cases on the card against
-                ``tests/conformance/expected``
-7. ``kernels``  for each kernel: launches on its path (counts set to 0 just
+7. ``pe_insert_path``  1,000,000 seeded read pairs of 2x150 (TruSeq
+                adapters after normal inserts of mean 220, and a near-poly-A
+                block) through ``trim --aligner insert -a AD1 -A AD2 -pe1 -pe2
+                -o -p``; the window is <= 255, so this path launches
+                ``diag_counts_u8`` and, for the fallback adapter matches of
+                both mates, ``dp_locate_word32``
+8. ``pe_insert_wide_path``  200,000 pairs of 2x300 (inserts of mean 400):
+                the window is > 255, so this path launches ``diag_counts_i32``
+9. ``pe_adapter_path``  the 2x150 pairs with ``--aligner adapter``
+10. ``goldens``  five upstream single-end cases and every paired-end case of
+                the ported slice on the card against ``tests/conformance``
+11. ``kernels``  for each kernel: launches on its path (counts set to 0 just
                 before the path and read just after), error against the plain
                 version, time at the path's shape, the plain version's time
                 and the card's bound for the same work
-8. the last line: ``{"ok": true, "device": {...}}``
+12. the last line: ``{"ok": true, "device": {...}}``
 
 Any phase that fails raises: the script then exits non-zero without the
 last line. Without a usable card it exits non-zero at once.
@@ -42,6 +56,7 @@ import sys
 import tempfile
 import threading
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -52,17 +67,33 @@ if not torch.cuda.is_available():
 
 from atropos_tpu_torch import runtime  # noqa: E402
 from atropos_tpu_torch.__main__ import main as port_main  # noqa: E402
-from atropos_tpu_torch.align import _build, cuda_kernel  # noqa: E402
-from atropos_tpu_torch.align.batched import _locate_kernel  # noqa: E402
+from atropos_tpu_torch.align import _build, cuda_kernel, insert_kernel  # noqa: E402
+from atropos_tpu_torch.align.batched import (  # noqa: E402
+    _locate_kernel,
+    insert_candidate_slots,
+)
 from atropos_tpu_torch.align.cuda_kernel import (  # noqa: E402
     CudaAligner,
     dp_locate_wide,
     dp_locate_word32,
 )
+from atropos_tpu_torch.align.insert_kernel import (  # noqa: E402
+    diag_counts_i32,
+    diag_counts_u8,
+)
 from atropos_tpu_torch.engine import turbo  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRUSEQ = "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
+# TruSeq read-2 adapter: what mate 2 reads into after a short insert
+TRUSEQ2 = "AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT"
+PAIRS = 1000000  # 2x150 pairs of the insert and adapter paired-end paths
+WIDE_PAIRS = 200000  # 2x300 pairs of the wide insert path
+# pairs of each paired-end path run again on the CPU: a pair batch holds at
+# most MAX_BATCH pairs, so this prefix holds the card's first DEPTH + 2
+# batches whole, and batches DEPTH + 1 and DEPTH + 2 reuse pinned upload and
+# fetch slots that earlier batches released
+CPU_PAIRS = (turbo.TurboPairedRunner.DEPTH + 2) * turbo.TurboPairedRunner.MAX_BATCH
 DEVICE = torch.device("cuda", 0)
 HBM_BYTES_PER_SECOND = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64
@@ -109,10 +140,10 @@ def phase_build():
     jobs = [
         threading.Thread(
             target=timed,
-            args=("nvcc dp_align.cu", lambda: _build.build("dp_align", verbose=True)),
-        ),
-        threading.Thread(target=timed, args=("g++ fastq.cpp", runtime.lib)),
-    ]
+            args=("nvcc " + name + ".cu", partial(_build.build, name, verbose=True)),
+        )
+        for name in ("dp_align", "diag_counts")
+    ] + [threading.Thread(target=timed, args=("g++ fastq.cpp", runtime.lib))]
     began = time.perf_counter()
     for job in jobs:
         job.start()
@@ -122,13 +153,17 @@ def phase_build():
         raise RuntimeError("build failed: {}".format(errors))
     ptxas = [
         line.strip()
-        for line in results["nvcc dp_align.cu"][0][1].splitlines()
+        for name in ("nvcc dp_align.cu", "nvcc diag_counts.cu")
+        for line in results[name][0][1].splitlines()
         if "registers" in line or "Compiling entry" in line
     ]
     emit({
         "build": {
             "seconds": time.perf_counter() - began,
-            "nvcc_seconds": results["nvcc dp_align.cu"][1],
+            "nvcc_seconds": {
+                name: results[name][1]
+                for name in ("nvcc dp_align.cu", "nvcc diag_counts.cu")
+            },
             "gxx_seconds": results["g++ fastq.cpp"][1],
             "flags": " ".join(_build.NVCC_FLAGS),
             "ptxas": ptxas,
@@ -210,34 +245,49 @@ def device_inputs(aligner, reads, lengths):
 
 def grid_configs():
     """A covering set: every value of every factor appears at least twice
-    (asserted below), not the full product."""
+    (asserted below), not the full product. Indel costs 2 and 3 come with
+    error rates 0.2 and 0.3, so that k reaches the cost."""
     flag_sets = [("a", BACK, "back"), ("g", FRONT, "front"), ("b", ANYWHERE, "any"),
                  ("prefix", PREFIX, "front"), ("suffix", SUFFIX, "back")]
     configs = []
-    for i in range(36):
+    for i in range(40):
         name, flags, place = flag_sets[i % 5]
+        indel_cost = (1, 2, 100000, 3)[(i // 2) % 4]
+        rates = (0.2, 0.3) if indel_cost in (2, 3) else (0.1, 0.2)
         configs.append(dict(
             idx=i, flag_name=name, flags=flags, place=place,
             iupac=bool((i // 5 + i) % 2),
-            indel_cost=(1, 100000)[(i // 2) % 2],
-            e=(0.1, 0.2)[(i // 3 + i // 7) % 2],
+            indel_cost=indel_cost,
+            e=rates[(i // 3 + i // 7) % 2],
             m=(8, 33, 120)[i % 3],
             L=(32, 160, 320)[(i // 3 + i) % 3],
             B=32768,
         ))
     for factor, values in (
         ("flag_name", ["a", "g", "b", "prefix", "suffix"]), ("iupac", [False, True]),
-        ("indel_cost", [1, 100000]), ("e", [0.1, 0.2]), ("m", [8, 33, 120]),
+        ("indel_cost", [1, 2, 3, 100000]), ("e", [0.1, 0.2, 0.3]), ("m", [8, 33, 120]),
         ("L", [32, 160, 320]),
     ):
         for value in values:
             count = sum(1 for c in configs if c[factor] == value)
             check(count >= 2, (factor, value, count))
+    for cost in (2, 3):
+        reached = sum(
+            1 for c in configs if c["indel_cost"] == cost and int(c["e"] * c["m"]) >= cost
+        )
+        check(reached >= 2, ("indel cost reached by k", cost, reached))
     # shapes whose cell does not fit 32 bits: dp_locate_wide's own domain
-    configs.append(dict(idx=36, flag_name="a", flags=BACK, place="any", iupac=False,
+    configs.append(dict(idx=40, flag_name="a", flags=BACK, place="any", iupac=False,
                         indel_cost=100000, e=0.3, m=880, L=7328, B=1024))
-    configs.append(dict(idx=37, flag_name="b", flags=ANYWHERE, place="any", iupac=True,
+    configs.append(dict(idx=41, flag_name="b", flags=ANYWHERE, place="any", iupac=True,
                         indel_cost=100000, e=0.3, m=880, L=7328, B=512))
+    # adapters whose column does not fit shared memory even for one warp,
+    # so the kernel keeps it in global memory: 1,200 bases in the 64-bit
+    # word (m 11 + origin 13 + cost 9 bits) and 2,000 in the 32-bit word
+    configs.append(dict(idx=42, flag_name="a", flags=BACK, place="any", iupac=False,
+                        indel_cost=100000, e=0.3, m=1200, L=3072, B=1024, big=True))
+    configs.append(dict(idx=43, flag_name="b", flags=ANYWHERE, place="any", iupac=True,
+                        indel_cost=100000, e=0.1, m=2000, L=2048, B=1024, big=True))
     return configs
 
 
@@ -256,6 +306,7 @@ def phase_grid(seed):
     began = time.perf_counter()
     compared = {"dp_locate_word32": 0, "dp_locate_wide": 0}
     max_err = {"dp_locate_word32": 0, "dp_locate_wide": 0}
+    global_column = {}
     found_total = 0
     for cfg in grid_configs():
         rng = np.random.default_rng([seed, 1, cfg["idx"]])
@@ -291,11 +342,19 @@ def phase_grid(seed):
                     )
                 )
             compared[kernel.name] += 1
+            if cfg.get("big"):
+                # the shape the wrapper once refused: its column now lives
+                # in global memory, and it is timed there for PERF.md
+                check(kernel.block_layout(cfg["m"])[1], (kernel.name, "global column", cfg))
+                global_column[kernel.name] = time_kernel(
+                    kernel, aligner, reads_T, lens, launches=5
+                )
         found_total += int(expected[0].sum())
     check(
-        compared["dp_locate_word32"] >= 30 and compared["dp_locate_wide"] >= 12,
-        'compared["dp_locate_word32"] >= 30 and compared["dp_locate_wide"] >= 12',
+        compared["dp_locate_word32"] >= 32 and compared["dp_locate_wide"] >= 15,
+        'compared["dp_locate_word32"] >= 32 and compared["dp_locate_wide"] >= 15',
     )
+    check(sorted(global_column) == ["dp_locate_wide", "dp_locate_word32"], global_column)
     check(found_total > 0, 'found_total > 0')
     emit({
         "grid": {
@@ -304,9 +363,10 @@ def phase_grid(seed):
             "reads_with_a_match": found_total,
             "tolerance": 0,
             "seconds": time.perf_counter() - began,
+            "global_column": global_column,
         }
     })
-    return max_err
+    return max_err, global_column
 
 
 def time_kernel(kernel, aligner, reads_T, lens, launches=20):
@@ -354,7 +414,138 @@ def time_kernel(kernel, aligner, reads_T, lens, launches=20):
     )
 
 
+# -- the diagonal-count kernels against their plain version ---------------------
+
+#: (kernel, window, alphabet): the windows each kernel serves on the paired
+#: paths and around their edges; the 32-bit kernel also with more than 14
+#: symbols, the alphabets that the 8-bit kernel's TPU counterpart refuses
+DIAG_GRID = (
+    [(diag_counts_u8, W, b"ACGTN") for W in (33, 64, 100, 150, 255)]
+    + [(diag_counts_u8, 160, b"ACGTNacgtnRYKM")]
+    + [(diag_counts_i32, W, alphabet)
+       for W in (64, 255, 256, 300, 301)
+       for alphabet in (b"ACGTN", b"ACGTNRYKMSWBDHVacgtn")]
+)
+
+
+def diag_batch(rng, W, B, alphabet):
+    """[W, B] uint8 ref and query planes and [B] int32 lengths, random in
+    [0, W] (0 and W included); in a quarter of the pairs the query is the
+    ref read from a random diagonal on, with 5 % of its bytes replaced."""
+    syms = np.frombuffer(alphabet, np.uint8)
+    ref = syms[rng.integers(0, len(syms), (B, W))]
+    query = syms[rng.integers(0, len(syms), (B, W))]
+    lengths = rng.integers(0, W + 1, B)
+    lengths[:3] = (0, W, 1)
+    shift = rng.integers(0, W, B)[:, None]
+    shifted = np.take_along_axis(ref, (np.arange(W)[None, :] + shift) % W, axis=1)
+    shifted = np.where(rng.random((B, W)) < 0.05, query, shifted)
+    query = np.where((rng.random(B) < 0.25)[:, None], shifted, query)
+    return (
+        torch.from_numpy(ref.T.copy()).to(DEVICE),
+        torch.from_numpy(query.T.copy()).to(DEVICE),
+        torch.from_numpy(lengths.astype(np.int32)).to(DEVICE),
+    )
+
+
+def phase_diag_grid(seed):
+    began = time.perf_counter()
+    compared = {diag_counts_u8.name: 0, diag_counts_i32.name: 0}
+    max_err = dict.fromkeys(compared, 0)
+    for idx, (kernel, W, alphabet) in enumerate(DIAG_GRID):
+        rng = np.random.default_rng([seed, 5, idx])
+        ref_T, query_T, lengths = diag_batch(rng, W, 32768, alphabet)
+        got = kernel(ref_T, query_T, lengths)
+        torch.cuda.synchronize()
+        expected = kernel.plain(ref_T, query_T, lengths)
+        err = int((got.long() - expected.long()).abs().max())
+        max_err[kernel.name] = max(max_err[kernel.name], err)
+        if not torch.equal(got, expected):
+            raise AssertionError(
+                "{} disagrees with its plain version at W = {}, {}".format(
+                    kernel.name, W, alphabet
+                )
+            )
+        check(int(expected.long().sum()) > 0, (kernel.name, W))
+        compared[kernel.name] += 1
+    emit({
+        "diag_grid": {
+            "configurations": len(DIAG_GRID), "compared": compared, "B": 32768,
+            "tolerance": 0, "seconds": time.perf_counter() - began,
+        }
+    })
+    return max_err
+
+
+def time_diag(kernel, ref_T, query_T, m_col, launches=20):
+    """Median time of one launch of a diagonal-count kernel, its plain
+    version's time, and the bound for this batch: the compares it needs
+    (sum over pairs and diagonals s of min(W, m - s)) at one integer
+    operation a lane and clock, against both planes read once and the
+    counts written once."""
+    for _ in range(3):
+        kernel(ref_T, query_T, m_col)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(launches):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = kernel(ref_T, query_T, m_col)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    began = time.perf_counter()
+    expected = kernel.plain(ref_T, query_T, m_col)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - began) * 1e3
+    if not torch.equal(out, expected):
+        raise AssertionError(kernel.name + " disagrees at its path's shape")
+    W, B = query_T.shape
+    m = m_col.cpu().numpy().astype(np.int64)
+    compares = int(
+        np.clip(np.minimum(W, m[None, :] - np.arange(W)[:, None]), 0, None).sum()
+    )
+    props = torch.cuda.get_device_properties(0)
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    ops_ms = compares / (props.multi_processor_count * INT32_LANES_PER_SM * clock_hz) * 1e3
+    out_bytes = W * B * out.element_size()
+    bytes_ms = (2 * W * B + 4 * B + out_bytes) / HBM_BYTES_PER_SECOND * 1e3
+    return dict(
+        ms=float(np.median(times)),
+        plain_ms=plain_ms,
+        bound_ms=max(ops_ms, bytes_ms),
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        # no single PyTorch call computes per-diagonal match counts: the
+        # nearest, a batched correlation (conv1d), sums products, not
+        # equalities, and would need one-hot planes of every symbol
+        library_ms=None,
+        shape=dict(W=W, B=B),
+        compares=compares,
+        bytes=2 * W * B + 4 * B + out_bytes,
+    )
+
+
 # -- the main path -------------------------------------------------------------
+
+
+def fastq_block(ids, reads, quals, suffix=b""):
+    """FASTQ records of equal length as bytes: names of 8 digits from
+    ``ids`` followed by ``suffix``, ``reads`` and ``quals`` [n, L] uint8."""
+    count, read_len = reads.shape
+    name_len = 1 + 8 + len(suffix)
+    block = np.empty((count, name_len + 1 + read_len + 3 + read_len + 1), np.uint8)
+    block[:, 0] = ord("@")
+    for digit in range(8):
+        block[:, 8 - digit] = 48 + (ids // 10 ** digit) % 10
+    block[:, 9:name_len] = np.frombuffer(suffix, np.uint8)
+    pos = name_len
+    block[:, pos] = 10
+    block[:, pos + 1 : pos + 1 + read_len] = reads
+    pos += 1 + read_len
+    block[:, pos : pos + 3] = np.frombuffer(b"\n+\n", np.uint8)
+    block[:, pos + 3 : pos + 3 + read_len] = quals
+    block[:, -1] = 10
+    return block.tobytes()
 
 
 def write_truseq_fastq(path, rng, n_reads, read_len=150, chunk=250000):
@@ -362,8 +553,6 @@ def write_truseq_fastq(path, rng, n_reads, read_len=150, chunk=250000):
     adapter at a random offset with 1 % substitutions and occasional
     indels, a few lowercase, a few with 'N'. Returns per read: whether an
     unmutated adapter copy was planted, and its offset."""
-    name_digits = 8
-    record = 1 + name_digits + 1 + read_len + 3 + read_len + 1
     clean_all, start_all = [], []
     with open(path, "wb") as out:
         for first in range(0, n_reads, chunk):
@@ -388,19 +577,7 @@ def write_truseq_fastq(path, rng, n_reads, read_len=150, chunk=250000):
             lower = rng.random(count) < 0.01
             reads[lower] |= 0x20
             quals = (33 + rng.integers(2, 41, (count, read_len))).astype(np.uint8)
-            block = np.empty((count, record), np.uint8)
-            block[:, 0] = ord("@")
-            ids = np.arange(first, first + count)
-            for digit in range(name_digits):
-                block[:, name_digits - digit] = 48 + (ids // 10 ** digit) % 10
-            pos = 1 + name_digits
-            block[:, pos] = 10
-            block[:, pos + 1 : pos + 1 + read_len] = reads
-            pos += 1 + read_len
-            block[:, pos : pos + 3] = np.frombuffer(b"\n+\n", np.uint8)
-            block[:, pos + 3 : pos + 3 + read_len] = quals
-            block[:, -1] = 10
-            out.write(block.tobytes())
+            out.write(fastq_block(np.arange(first, first + count), reads, quals))
             clean_all.append(clean)
             start_all.append(start)
     return np.concatenate(clean_all), np.concatenate(start_all)
@@ -418,13 +595,14 @@ def output_lengths(path, fasta=False):
 
 
 def run_trim(argv, device):
-    """One command line through the port's entry point, with the kernels'
-    launch counts set to 0 just before and read just after."""
+    """One command line through the port's entry point, with every
+    kernel's launch count set to 0 just before and read just after."""
     cuda_kernel.reset_launch_counts()
+    insert_kernel.reset_launch_counts()
     began = time.perf_counter()
     retcode = port_main(argv, device=device)
     seconds = time.perf_counter() - began
-    counts = cuda_kernel.launch_counts()
+    counts = dict(cuda_kernel.launch_counts(), **insert_kernel.launch_counts())
     if retcode != 0:
         raise RuntimeError("trim exited with {}: {}".format(retcode, argv))
     return seconds, counts, dict(turbo.LAST_RUN)
@@ -628,6 +806,243 @@ def phase_long_path(work, seed):
     return launches, time_kernel(dp_locate_wide, aligner, reads_T, lens, launches=20)
 
 
+# -- the paired-end paths ----------------------------------------------------------
+
+COMPLEMENT = np.arange(256, dtype=np.uint8)
+COMPLEMENT[np.frombuffer(b"ACGT", np.uint8)] = np.frombuffer(b"TGCA", np.uint8)
+
+
+def write_pairs(path1, path2, rng, n_pairs, read_len, mean, sd, poly_a=(0, 0),
+                chunk=100000):
+    """Read pairs of ``read_len`` bases from both ends of inserts whose
+    lengths are normal (``mean``, ``sd``) clipped to 40-500: mate 1 reads
+    the insert and then the TruSeq read-1 adapter, mate 2 the insert's
+    reverse complement and then the read-2 adapter, each followed by random
+    bases; 1 % substitutions on both mates. Pairs ``poly_a[0]`` up to
+    ``poly_a[1]`` are near-poly-A instead (mate 1 all A but one C, mate 2
+    all T): dozens of admissible insert diagonals, more than the bundle's
+    candidate slots. Names end in /1 and /2. Returns the insert lengths,
+    -1 for the poly-A pairs."""
+    inserts = np.clip(np.rint(rng.normal(mean, sd, n_pairs)), 40, 500).astype(np.int64)
+    inserts[poly_a[0] : poly_a[1]] = -1
+    t = np.arange(read_len)[None, :]
+    adapters = [np.frombuffer(a.encode("ascii"), np.uint8) for a in (TRUSEQ, TRUSEQ2)]
+    with open(path1, "wb") as out1, open(path2, "wb") as out2:
+        for first in range(0, n_pairs, chunk):
+            count = min(chunk, n_pairs - first)
+            ins = inserts[first : first + count, None]
+            frag = BASES[rng.integers(0, 4, (count, 500))]
+            mates = []
+            for mate, adapter in enumerate(adapters):
+                tail = BASES[rng.integers(0, 4, (count, read_len + len(adapter)))]
+                tail[:, : len(adapter)] = adapter
+                if mate == 0:
+                    own = frag[:, :read_len]
+                else:
+                    own = COMPLEMENT[
+                        np.take_along_axis(frag, np.clip(ins - 1 - t, 0, 499), axis=1)
+                    ]
+                after = np.take_along_axis(tail, np.clip(t - ins, 0, None), axis=1)
+                reads = np.where(t < ins, own, after)
+                subs = rng.random((count, read_len)) < 0.01
+                reads = np.where(subs, BASES[rng.integers(0, 4, (count, read_len))], reads)
+                mates.append(reads.astype(np.uint8))
+            poly = (ins[:, 0] < 0)
+            if poly.any():
+                mates[0][poly] = ord("A")
+                rows = np.nonzero(poly)[0]
+                mates[0][rows, rng.integers(20, 80, rows.size)] = ord("C")
+                mates[1][poly] = ord("T")
+            ids = np.arange(first, first + count)
+            for out, reads, suffix in ((out1, mates[0], b"/1"), (out2, mates[1], b"/2")):
+                quals = (33 + rng.integers(2, 41, (count, read_len))).astype(np.uint8)
+                out.write(fastq_block(ids, reads, quals, suffix))
+    return inserts
+
+
+def pe_argv(aligner, in1, in2, out1, out2, work):
+    return [
+        "trim", "--aligner", aligner, "-a", TRUSEQ, "-A", TRUSEQ2,
+        "-pe1", in1, "-pe2", in2, "-o", out1, "-p", out2,
+        "--quiet", "--no-cache-adapters", "--report-file", os.path.join(work, "report_pe.txt"),
+    ]
+
+
+def compare_with_cpu(argv, outs, cpu_outs, card_run):
+    """The same command line on ``cpu`` for the first ``CPU_PAIRS`` pairs:
+    its outputs must be the byte-identical prefix of the card's. The card's
+    run must have had more batches than the prefix holds whole, so that
+    the prefix reaches batches whose pinned slots were reused."""
+    check(card_run["batches"] > turbo.TurboPairedRunner.DEPTH + 2, card_run)
+    pairs = CPU_PAIRS
+    cpu_argv = [cpu_outs[outs.index(a)] if a in outs else a for a in argv]
+    cpu_argv += ["--max-reads", str(pairs)]
+    seconds, counts, run = run_trim(cpu_argv, "cpu")
+    check(run["device"] == "cpu" and run["pairs"] == pairs, run)
+    check(sum(counts.values()) == 0, counts)
+    sizes = []
+    for out, cpu_out in zip(outs, cpu_outs):
+        with open(cpu_out, "rb") as handle:
+            cpu_bytes = handle.read()
+        with open(out, "rb") as handle:
+            card_prefix = handle.read(len(cpu_bytes))
+        check(len(cpu_bytes) > 0 and cpu_bytes == card_prefix,
+              "CPU and GPU outputs differ: " + out)
+        sizes.append(len(cpu_bytes))
+        os.remove(cpu_out)
+    return {"pairs": pairs, "seconds": seconds, "identical_prefix_bytes": sizes,
+            "slot_overflow_pairs": run["slot_overflow_pairs"]}
+
+
+def split_seconds(run):
+    return {
+        "parse (reader threads, both files)": run["parse_seconds"],
+        "main thread waiting for parsed chunks": run["chunk_wait_seconds"],
+        "main thread preparing batches (both mates)": run["prepare_seconds"],
+        "main thread enqueueing uploads and device steps": run["dispatch_seconds"],
+        "device wait": run["device_wait_seconds"],
+        "main thread resolving pairs, filters, routing": run["resolve_seconds"],
+        "format (writer thread)": run["format_seconds"],
+        "write (writer thread)": run["write_seconds"],
+    }
+
+
+def phase_pe_insert(work, seed, n_pairs, read_len, mean, kernel, poly_a):
+    """``trim --aligner insert`` on seeded pairs: the counts kernel the
+    window selects runs once a pair batch, ``dp_locate_word32`` once a
+    batch for each mate's fallback adapter match."""
+    rng = np.random.default_rng([seed, 6, read_len])
+    in1 = os.path.join(work, "pairs{}.1.fastq".format(read_len))
+    in2 = os.path.join(work, "pairs{}.2.fastq".format(read_len))
+    began = time.perf_counter()
+    inserts = write_pairs(in1, in2, rng, n_pairs, read_len, mean, 70, poly_a)
+    made = time.perf_counter() - began
+    outs = [os.path.join(work, "trimmed_pe.{}.fastq".format(i)) for i in (1, 2)]
+    argv = pe_argv("insert", in1, in2, *outs, work)
+    seconds, counts, run = run_trim(argv, "cuda")
+    other = diag_counts_i32 if kernel is diag_counts_u8 else diag_counts_u8
+    check(run["device"].startswith("cuda") and run["pairs"] == n_pairs, run)
+    check(run["aligner"] == "insert" and run["device_aligners"] == 2, run)
+    check(counts[kernel.name] == run["batches"] > 0, (counts, run))
+    check(counts[other.name] == 0, (counts, run))
+    check(counts["dp_locate_word32"] == run["batches"] * run["device_aligners"], (counts, run))
+    check(counts["dp_locate_wide"] == 0, counts)
+    if poly_a[1] > poly_a[0]:
+        check(run["slot_overflow_pairs"] > 0, run)
+    # over every batch: read-through pairs are cut to their insert length
+    len1, len2 = output_lengths(outs[0]), output_lengths(outs[1])
+    check(len1.shape[0] == len2.shape[0] == n_pairs, "pairs in != pairs out")
+    through = (inserts >= 0) & (inserts < read_len)
+    at_insert = (len1[through] == inserts[through]) & (len2[through] == inserts[through])
+    share = float(at_insert.mean())
+    check(share > 0.97, ("read-through pairs cut at their insert", share))
+    check(np.all(len1[inserts >= read_len] <= read_len), "a long insert grew")
+    cpu = compare_with_cpu(argv, outs, [o + ".cpu" for o in outs], run)
+    for out in outs:
+        os.remove(out)
+    return dict(
+        argv="trim --aligner insert -a TRUSEQ -A TRUSEQ2 -pe1 -pe2 -o -p",
+        pairs=n_pairs, read_length=read_len, insert_mean=mean, insert_sd=70,
+        input_bytes=os.path.getsize(in1) + os.path.getsize(in2),
+        make_input_seconds=made, seconds=seconds, pairs_per_second=n_pairs / seconds,
+        batches=run["batches"], launches=counts,
+        slot_overflow_pairs=run["slot_overflow_pairs"],
+        read_through_pairs=int(through.sum()), cut_at_insert_share=share,
+        split_seconds=split_seconds(run), cpu_check=cpu,
+    ), (in1, in2)
+
+
+def phase_pe_adapter(work, inputs, n_pairs):
+    """The same pairs with ``--aligner adapter``: each mate's lane runs
+    ``dp_locate_word32`` once a batch for its adapter."""
+    outs = [os.path.join(work, "trimmed_pa.{}.fastq".format(i)) for i in (1, 2)]
+    argv = pe_argv("adapter", *inputs, *outs, work)
+    seconds, counts, run = run_trim(argv, "cuda")
+    check(run["aligner"] == "adapter" and run["pairs"] == n_pairs, run)
+    check(counts["dp_locate_word32"] == run["batches"] * run["device_aligners"] > 0,
+          (counts, run))
+    check(run["device_aligners"] == 2, run)
+    check(counts["diag_counts_u8"] == counts["diag_counts_i32"] == 0, counts)
+    cpu = compare_with_cpu(argv, outs, [o + ".cpu" for o in outs], run)
+    for out in outs:
+        os.remove(out)
+    return dict(
+        argv="trim --aligner adapter -a TRUSEQ -A TRUSEQ2 -pe1 -pe2 -o -p",
+        pairs=n_pairs, seconds=seconds, pairs_per_second=n_pairs / seconds,
+        batches=run["batches"], launches=counts, split_seconds=split_seconds(run),
+        cpu_check=cpu,
+    )
+
+
+def pair_step_inputs(inputs, work, read_len):
+    """The first pair batch of ``inputs`` as the fused pair step takes it:
+    the paired runner's insert stage, both mates prepared and uploaded."""
+    from atropos_tpu_torch.commands import get_command
+    from atropos_tpu_torch.commands.trim import RecordHandler
+    from atropos_tpu_torch.commands.trim.builder import TrimStackBuilder
+
+    command = get_command("trim")
+    outs = [os.path.join(work, "unused.{}.fastq".format(i)) for i in (1, 2)]
+    options = command.parse_args(pe_argv("insert", *inputs, *outs, work)[1:])
+    runner = command.runner_class(options)
+    modifiers, filters, formatters, writers = TrimStackBuilder(runner).build()
+    pair = turbo.TurboPairedRunner.build(
+        runner, RecordHandler(modifiers, filters, formatters), writers, device="cuda",
+    ).insert_pair
+    runner.reader.close()
+    record = 1 + 8 + 2 + 1 + read_len + 3 + read_len + 1
+    args = []
+    for lane, path in ((pair.lane1, inputs[0]), (pair.lane2, inputs[1])):
+        with open(path, "rb") as handle:
+            chunk = runtime.parse_chunk(handle.read(32768 * record))
+        check(chunk.n == 32768, "chunk.n == 32768")
+        tok, host_args, bits = lane.prepare(chunk, slice(0, 32768))
+        dev = [None if a is None else a.to(DEVICE) for a in host_args]
+        luts = lane._view_luts_dev
+        args += [tok, bits, dev, luts]
+        args.append(chunk)
+    tok1, bits1, dev1, luts1, chunk1, tok2, bits2, dev2, luts2, chunk2 = args
+    kernel = insert_kernel.kernel_for(
+        min(tok1.width, tok2.width), pair._n_symbols(chunk1, chunk2)
+    )
+    return pair, kernel, (tok1, bits1, dev1, luts1, tok2, bits2, dev2, luts2)
+
+
+def time_pair_step(pair, kernel, step_args, launches=20):
+    """The fused pair step alone, and beside it what of it the counts
+    kernel and ``insert_candidate_slots`` (torch ops) take."""
+
+    def timed(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(launches):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+        return float(np.median(times))
+
+    step_ms = timed(lambda: pair._step(*step_args, kernel))
+    _, _, m_col, ref_plane, query_plane = pair._planes(*step_args)
+    ref_T, query_T = ref_plane.T.contiguous(), query_plane.T.contiguous()
+    counts = kernel(ref_T, query_T, m_col)
+    result = dict(step_ms=step_ms, counts_kernel=kernel.name,
+                  counts_kernel_ms=timed(lambda: kernel(ref_T, query_T, m_col)),
+                  W=query_plane.shape[1], B=query_plane.shape[0])
+    if query_plane.shape[1] <= insert_kernel.PACKED_MAX_W:
+        slots_ms = timed(lambda: insert_candidate_slots(
+            counts, m_col, ref_plane, query_plane, pair._step_table,
+            pair.matcher.min_overlap, pair.matcher.max_matches,
+        ))
+        result.update(insert_candidate_slots_ms=slots_ms,
+                      insert_candidate_slots_share=slots_ms / step_ms)
+    return result, (ref_T, query_T, m_col)
+
+
 # -- goldens ---------------------------------------------------------------------
 
 GOLDENS = [
@@ -640,23 +1055,53 @@ GOLDENS = [
 
 
 def phase_goldens(work):
+    """The single-end cases above, and every paired-end case of the ported
+    slice (the table of ``tests/test_torch_goldens_pe.py``, both aligners,
+    and interleaved input and output), on the card."""
+    import pathlib
+
+    sys.path.insert(0, ROOT)
+    from tests.test_torch_goldens_pe import PORTED, SIDE_OUTPUTS, _argv
+
     conformance = os.path.join(ROOT, "tests", "conformance")
     launches = 0
+    runs = []  # (argv, [(written, golden)])
     for params, expected, inpath in GOLDENS:
         out = os.path.join(work, "golden_" + expected)
-        argv = ["trim"] + params.split() + [
-            "-se", os.path.join(conformance, "data", inpath), "-o", out, "--quiet",
-            "--no-cache-adapters", "--report-file", os.path.join(work, "report3.txt"),
+        runs.append((["trim"] + params.split() + [
+            "-se", os.path.join(conformance, "data", inpath), "-o", out,
+        ], [(out, expected)]))
+    for i, (name, aligner, params, in1, in2, exp1, exp2) in enumerate(PORTED):
+        case_dir = pathlib.Path(work) / "pe{}".format(i)
+        case_dir.mkdir()
+        argv, out1, out2 = _argv(params, aligner, in1, in2, exp1, exp2, case_dir)
+        pairs = [(out1, exp1), (out2, exp2)] + [
+            (str(case_dir / written), golden) for written, golden in SIDE_OUTPUTS.get(name, ())
         ]
+        runs.append((["trim"] + argv, [
+            (path, golden.format(aligner=aligner)) for path, golden in pairs
+        ]))
+    for aligner in ("adapter", "insert"):
+        out = os.path.join(work, "interleaved_{}.fastq".format(aligner))
+        runs.append((["trim"] + "-q 20 -a TTAGACATAT -A CAGTGGAGTA -m 14 -M 90".split() + [
+            "--aligner", aligner, "-l", os.path.join(conformance, "data", "interleaved.fastq"),
+            "-L", out,
+        ], [(out, "interleaved.fastq")]))
+    for argv, outputs in runs:
+        argv = argv + ["--quiet", "--no-cache-adapters",
+                       "--report-file", os.path.join(work, "report3.txt")]
         _, counts, _ = run_trim(argv, "cuda")
         launches += sum(counts.values())
-        with open(out, "rb") as got, open(
-            os.path.join(conformance, "expected", expected), "rb"
-        ) as want:
-            if got.read() != want.read():
-                raise AssertionError("golden case differs on the card: " + params)
-    check(launches >= len(GOLDENS), 'launches >= len(GOLDENS)')
-    emit({"goldens": {"cases": len(GOLDENS), "identical": len(GOLDENS), "launches": launches}})
+        for path, golden in outputs:
+            with open(path, "rb") as got, open(
+                os.path.join(conformance, "expected", golden), "rb"
+            ) as want:
+                if got.read() != want.read():
+                    raise AssertionError("golden case differs on the card: {}".format(argv))
+    check(launches >= len(runs), 'launches >= len(runs)')
+    emit({"goldens": {"single_end_cases": len(GOLDENS),
+                      "paired_end_cases": len(runs) - len(GOLDENS),
+                      "identical": len(runs), "launches": launches}})
 
 
 # -- main --------------------------------------------------------------------------
@@ -677,7 +1122,8 @@ def main():
     emit({"device": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "sm_clock_max": smi("clocks.max.sm")})
     phase_build()
-    max_err = phase_grid(args.seed)
+    max_err, global_column = phase_grid(args.seed)
+    max_err.update(phase_diag_grid(args.seed))
 
     work = tempfile.mkdtemp(prefix="atropos_chip_smoke_")
     try:
@@ -698,22 +1144,54 @@ def main():
         step = time_device_step(fastq, work)
         step["dp_kernel_ms"] = word32_time["ms"]
         emit({"device_step_at_main_path_shape": step})
+        os.remove(fastq)
         wide_launches, wide_time = phase_long_path(work, args.seed)
+
+        # 2x150 pairs: the insert aligner (diag_counts_u8), then the adapter
+        # aligner on the same files
+        pe, inputs = phase_pe_insert(
+            work, args.seed, PAIRS, 150, 220, diag_counts_u8, poly_a=(40000, 43000),
+        )
+        pair, kernel, step_args = pair_step_inputs(inputs, work, 150)
+        check(kernel is diag_counts_u8, kernel.name)
+        pe["pair_step"], u8_inputs = time_pair_step(pair, kernel, step_args)
+        emit({"pe_insert_path": pe})
+        u8_launches = pe["launches"]["diag_counts_u8"]
+        u8_time = time_diag(diag_counts_u8, *u8_inputs)
+        emit({"pe_adapter_path": phase_pe_adapter(work, inputs, PAIRS)})
+        for path in inputs:
+            os.remove(path)
+
+        # 2x300 pairs (MiSeq v3): the window exceeds 255, diag_counts_i32
+        wide_pe, wide_inputs = phase_pe_insert(
+            work, args.seed, WIDE_PAIRS, 300, 400, diag_counts_i32, poly_a=(0, 0),
+        )
+        pair, kernel, step_args = pair_step_inputs(wide_inputs, work, 300)
+        check(kernel is diag_counts_i32, kernel.name)
+        wide_pe["pair_step"], i32_inputs = time_pair_step(pair, kernel, step_args)
+        emit({"pe_insert_wide_path": wide_pe})
+        i32_launches = wide_pe["launches"]["diag_counts_i32"]
+        i32_time = time_diag(diag_counts_i32, *i32_inputs)
+        for path in wide_inputs:
+            os.remove(path)
         phase_goldens(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    emit({"dp_global_column": global_column})
     kernels = []
-    for kernel, launches, timing in (
-        (dp_locate_word32, word32_launches, word32_time),
-        (dp_locate_wide, wide_launches, wide_time),
+    for kernel, source, launches, timing in (
+        (dp_locate_word32, "atropos_tpu_torch/csrc/dp_align.cu", word32_launches, word32_time),
+        (dp_locate_wide, "atropos_tpu_torch/csrc/dp_align.cu", wide_launches, wide_time),
+        (diag_counts_u8, "atropos_tpu_torch/csrc/diag_counts.cu", u8_launches, u8_time),
+        (diag_counts_i32, "atropos_tpu_torch/csrc/diag_counts.cu", i32_launches, i32_time),
     ):
         if launches <= 0:
             raise AssertionError(kernel.name + " was not launched on its path")
         entry = {
             "name": kernel.name,
             "route": "cuda",
-            "source": "atropos_tpu_torch/csrc/dp_align.cu",
+            "source": source,
             "replaces": kernel.replaces.split(" ")[0],
             "launches": launches,
             "max_abs_err": max_err[kernel.name],

@@ -49,9 +49,14 @@ def _batch(seed, B, L, adapter, flags):
     return reads, lengths
 
 
+#: error rate for each indel cost: 2 and 3 with rates at which k = 6 and 9
+#: on TruSeq reach the cost
+ERROR_RATE = {1: 0.1, 2: 0.2, 3: 0.3, 100000: 0.1}
+
+
 @pytest.mark.parametrize("kernel_name", ["dp_locate_word32", "dp_locate_wide"])
 @pytest.mark.parametrize("flags", [14, 11, 15, 8, 2])
-@pytest.mark.parametrize("indel_cost", [1, 100000])
+@pytest.mark.parametrize("indel_cost", [1, 2, 3, 100000])
 def test_kernel_equals_plain_version(card, kernel_name, flags, indel_cost):
     import torch
 
@@ -59,8 +64,10 @@ def test_kernel_equals_plain_version(card, kernel_name, flags, indel_cost):
 
     kernel = getattr(cuda_kernel, kernel_name)
     aligner = cuda_kernel.CudaAligner(
-        TRUSEQ, 0.1, flags, min_overlap=3, indel_cost=indel_cost, device=card
+        TRUSEQ, ERROR_RATE[indel_cost], flags, min_overlap=3,
+        indel_cost=indel_cost, device=card,
     )
+    assert aligner.k >= min(indel_cost, 3)
     reads, lengths = _batch(flags * 7 + indel_cost % 5, 512, 96, TRUSEQ, flags)
     reads_T = torch.from_numpy(reads).to(card).T.contiguous()
     lens = torch.from_numpy(lengths).to(card)[None, :].contiguous()
@@ -73,6 +80,95 @@ def test_kernel_equals_plain_version(card, kernel_name, flags, indel_cost):
     assert kernel.launches == before + 1, "the plain version launches nothing"
     assert torch.equal(got, expected)
     assert int(expected[0].sum()) > 0
+
+
+@pytest.mark.parametrize("kernel_name,m,e,L,indel_cost", [
+    ("dp_locate_wide", 1200, 0.3, 3072, 100000),
+    ("dp_locate_word32", 2000, 0.1, 2048, 100000),
+    ("dp_locate_word32", 2000, 0.02, 2100, 3),
+])
+def test_adapter_beyond_shared_memory(card, kernel_name, m, e, L, indel_cost):
+    """Adapters whose cell column does not fit shared memory even for one
+    warp: the kernel keeps the column in global memory and still equals
+    its plain version."""
+    import torch
+
+    from atropos_tpu_torch.align import cuda_kernel
+
+    kernel = getattr(cuda_kernel, kernel_name)
+    rng = np.random.default_rng(m + L)
+    adapter = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, m)].tobytes().decode()
+    aligner = cuda_kernel.CudaAligner(
+        adapter, e, 15, min_overlap=3, indel_cost=indel_cost, device=card
+    )
+    assert aligner.kernel_for(L) is kernel
+    assert kernel.block_layout(m) == (cuda_kernel.THREADS_PER_BLOCK, True)
+    reads, lengths = _batch(m, 128, L, adapter, 15)
+    reads_T = torch.from_numpy(reads).to(card).T.contiguous()
+    lens = torch.from_numpy(lengths).to(card)[None, :].contiguous()
+    args = (reads_T, lens, aligner.ref_bytes, aligner.thresholds)
+    got = kernel(*args, **aligner._dp_params())
+    torch.cuda.synchronize()
+    expected = kernel.plain(*args, **aligner._dp_params())
+    assert torch.equal(got, expected)
+    assert int(expected[0].sum()) > 0
+
+
+def _planes(seed, W, B, alphabet):
+    rng = np.random.default_rng(seed)
+    syms = np.frombuffer(alphabet, np.uint8)
+    ref = syms[rng.integers(0, len(syms), (B, W))]
+    query = syms[rng.integers(0, len(syms), (B, W))]
+    lengths = rng.integers(0, W + 1, B).astype(np.int32)
+    lengths[:2] = (0, W)
+    shift = rng.integers(0, W, B)[:, None]
+    shifted = np.take_along_axis(ref, (np.arange(W)[None, :] + shift) % W, axis=1)
+    query = np.where((rng.random(B) < 0.25)[:, None], shifted, query)
+    return ref.T.copy(), query.T.copy(), lengths
+
+
+@pytest.mark.parametrize("kernel_name,W,alphabet", [
+    ("diag_counts_u8", W, b"ACGTN") for W in (33, 64, 100, 150, 255)
+] + [
+    ("diag_counts_i32", W, alphabet)
+    for W in (64, 255, 256, 300, 301)
+    for alphabet in (b"ACGTN", b"ACGTNRYKMSWBDHVacgtn")
+])
+def test_diag_counts_equal_plain_version(card, kernel_name, W, alphabet):
+    import torch
+
+    from atropos_tpu_torch.align import insert_kernel
+
+    kernel = getattr(insert_kernel, kernel_name)
+    # 1000 pairs: no multiple of the warp width or of the block
+    ref, query, lengths = _planes(W * len(alphabet), W, 1000, alphabet)
+    args = [torch.from_numpy(x).to(card) for x in (ref, query, lengths)]
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    expected = kernel.plain(*args)
+    assert kernel.launches == before + 1, "the plain version launches nothing"
+    assert got.dtype == expected.dtype == kernel.out_dtype
+    assert torch.equal(got, expected)
+    assert int(expected.long().max()) > W // 4
+
+
+def test_diag_wrappers_raise_instead_of_falling_back(card):
+    import torch
+
+    from atropos_tpu_torch.align import insert_kernel
+
+    plane = torch.zeros((256, 64), dtype=torch.uint8, device=card)
+    lengths = torch.zeros(64, dtype=torch.int32, device=card)
+    before = insert_kernel.launch_counts()
+    with pytest.raises(ValueError):  # 256 diagonals do not fit 8-bit counts
+        insert_kernel.diag_counts_u8(plane, plane, lengths)
+    with pytest.raises(ValueError):  # lengths on another device
+        insert_kernel.diag_counts_i32(plane, plane, lengths.cpu())
+    with pytest.raises(TypeError):
+        insert_kernel.diag_counts_i32(plane.int(), plane.int(), lengths)
+    assert insert_kernel.launch_counts() == before
 
 
 def test_wrapper_raises_instead_of_falling_back(card):
@@ -92,6 +188,66 @@ def test_wrapper_raises_instead_of_falling_back(card):
             aligner.ref_bytes.cpu(), aligner.thresholds, **aligner._dp_params()
         )
     assert cuda_kernel.launch_counts() == before
+
+
+@pytest.mark.parametrize("aligner,reads,counts_kernel", [
+    ("insert", "paired", "diag_counts_u8"),
+    ("insert", "long", "diag_counts_i32"),
+    ("adapter", "paired", None),
+])
+def test_paired_trim_on_the_card_equals_trim_on_the_cpu(
+    card, tmp_path, aligner, reads, counts_kernel
+):
+    from atropos_tpu_torch.__main__ import main
+    from atropos_tpu_torch.align import cuda_kernel, insert_kernel
+
+    data = os.path.join(os.path.dirname(__file__), "conformance", "data")
+    if reads == "paired":
+        inputs = [os.path.join(data, "big.{}.fq".format(i)) for i in (1, 2)]
+    else:
+        # mates of 300 bases: the matcher's window exceeds 255
+        rng = np.random.default_rng(300)
+        inputs = []
+        inserts = rng.integers(100, 400, 200)
+        frags = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (200, 400))]
+        comp = bytes.maketrans(b"ACGT", b"TGCA")
+        for mate in (1, 2):
+            path = str(tmp_path / "long.{}.fastq".format(mate))
+            with open(path, "w") as out:
+                for i, (n, frag) in enumerate(zip(inserts, frags)):
+                    ins = frag[:n].tobytes()
+                    if mate == 2:
+                        ins = ins.translate(comp)[::-1]
+                    ad = (TRUSEQ if mate == 1 else "AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT")
+                    seq = (ins.decode() + ad + "A" * 300)[:300]
+                    out.write("@p{}/{}\n{}\n+\n{}\n".format(i, mate, seq, "I" * 300))
+            inputs.append(path)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        paths = [str(tmp_path / "{}.{}.fastq".format(device, i)) for i in (1, 2)]
+        cuda_kernel.reset_launch_counts()
+        insert_kernel.reset_launch_counts()
+        rc = main(
+            ["trim", "--aligner", aligner, "-a", TRUSEQ,
+             "-A", "AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT", "-q", "10",
+             "-pe1", inputs[0], "-pe2", inputs[1], "-o", paths[0], "-p", paths[1],
+             "--quiet", "--no-cache-adapters",
+             "--report-file", str(tmp_path / "report.txt")],
+            device=device,
+        )
+        assert rc == 0
+        counts = dict(cuda_kernel.launch_counts(), **insert_kernel.launch_counts())
+        if device == "cuda":
+            assert counts["dp_locate_word32"] > 0
+            for name in ("diag_counts_u8", "diag_counts_i32"):
+                assert (counts[name] > 0) == (name == counts_kernel)
+        else:
+            assert sum(counts.values()) == 0
+        outs[device] = []
+        for path in paths:
+            with open(path, "rb") as handle:
+                outs[device].append(handle.read())
+    assert outs["cuda"] == outs["cpu"] and all(outs["cuda"])
 
 
 def test_trim_on_the_card_equals_trim_on_the_cpu(card, tmp_path):

@@ -114,7 +114,7 @@ NOT_PORTED = {
     "too_long": "engine",
     "length_tag": "engine",
     "mask_adapter": "engine",
-    "suffix": "paired",
+    "suffix": "engine",
     "adapter_wildcard_a": "side-files",
     "adapter_wildcard_b": "side-files",
     "anywhere_wildcard_file": "side-files",

@@ -6,6 +6,7 @@ trim in a subprocess in which a ``sys.meta_path`` finder refuses those
 packages. Asking for ``cuda`` on a machine without a card raises and
 writes no output; only an explicit ``cpu`` runs on the CPU.
 """
+import ast
 import os
 import re
 import subprocess
@@ -68,8 +69,11 @@ def test_sources_exist():
         "chip_smoke.py",
         "atropos_tpu_torch/__main__.py",
         "atropos_tpu_torch/align/cuda_kernel.py",
+        "atropos_tpu_torch/align/insert_kernel.py",
         "atropos_tpu_torch/align/batched.py",
+        "atropos_tpu_torch/commands/trim/modifiers/paired.py",
         "atropos_tpu_torch/csrc/dp_align.cu",
+        "atropos_tpu_torch/csrc/diag_counts.cu",
         "atropos_tpu_torch/engine/turbo.py",
         "atropos_tpu_torch/runtime/fastq.cpp",
     ):
@@ -84,6 +88,60 @@ def test_no_jax_and_no_reference_package_imports(path):
         text = handle.read()
     assert not FORBIDDEN.search(text), FORBIDDEN.search(text).group(0)
     assert not DYNAMIC.search(text)
+
+
+ENVIRON = re.compile(r"environ|getenv")
+
+
+def test_no_environment_switch():
+    """No environment variable selects a path: the only one the port reads
+    is ``CUDA_HOME``, where ``nvcc`` may live."""
+    found = []
+    for path in _sources():
+        with open(path) as handle:
+            for line in handle:
+                if ENVIRON.search(line):
+                    found.append((os.path.relpath(path, ROOT), line.strip()))
+    assert found == [(
+        "atropos_tpu_torch/align/_build.py",
+        'for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):',
+    )]
+
+
+#: calls that build or launch a kernel, or run a device step
+LAUNCHING = {
+    "_lib", "build", "load", "_step", "_dispatch", "_core", "_planes", "submit",
+    "kernel", "aligner", "dp_locate_word32", "dp_locate_wide", "diag_counts_u8",
+    "diag_counts_i32", "kernel_for",
+}
+
+
+def _called_names(node):
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Call):
+            func = sub.func
+            if isinstance(func, ast.Name):
+                yield func.id
+            elif isinstance(func, ast.Attribute):
+                yield func.attr
+
+
+@pytest.mark.parametrize(
+    "path",
+    [p for p in _sources() if p.endswith(".py") and ("/align/" in p or "/engine/" in p)],
+    ids=lambda p: os.path.relpath(p, ROOT),
+)
+def test_no_except_around_a_build_or_a_launch(path):
+    """No ``except`` catches what a kernel build, a launch or a device step
+    raises: there is no other implementation to fall back to."""
+    with open(path) as handle:
+        tree = ast.parse(handle.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Try) and node.handlers:
+            called = set()
+            for stmt in node.body:
+                called.update(_called_names(stmt))
+            assert not called & LAUNCHING, (node.lineno, called & LAUNCHING)
 
 
 def test_trim_runs_with_jax_and_the_reference_package_blocked(tmp_path):
@@ -108,6 +166,32 @@ sys.exit(rc)
     assert done.returncode == 0, done.stderr
     with open(out) as got, open(cutpath("small.fastq")) as expected:
         assert got.read() == expected.read()
+
+
+def test_paired_insert_trim_runs_with_jax_and_the_reference_package_blocked(tmp_path):
+    outs = [str(tmp_path / "out.{}.fastq".format(i)) for i in (1, 2)]
+    done = _run(
+        r'''
+from atropos_tpu_torch.__main__ import main
+from atropos_tpu_torch.engine import turbo
+rc = main(
+    ["trim", "--aligner", "insert", "-a", "TTAGACATAT", "-A", "CAGTGGAGTA", "-m", "14",
+     "-pe1", sys.argv[1], "-pe2", sys.argv[2], "-o", sys.argv[3], "-p", sys.argv[4],
+     "--quiet", "--adapter-cache-file", sys.argv[5], "--report-file", sys.argv[6]],
+    device="cpu",
+)
+assert turbo.LAST_RUN["aligner"] == "insert", turbo.LAST_RUN
+loaded = sorted(n for n in sys.modules if n.split(".")[0] in Refuse.BLOCKED)
+assert not loaded, loaded
+sys.exit(rc)
+''',
+        datapath("paired.1.fastq"), datapath("paired.2.fastq"), *outs,
+        str(tmp_path / ".adapters"), str(tmp_path / "report.txt"),
+    )
+    assert done.returncode == 0, done.stderr
+    for out, golden in zip(outs, ("paired_insert.1.fastq", "paired_insert.2.fastq")):
+        with open(out) as got, open(cutpath(golden)) as expected:
+            assert got.read() == expected.read()
 
 
 def test_blocker_really_blocks():
@@ -198,8 +282,14 @@ def test_other_commands_are_not_ported(command):
 
 
 @pytest.mark.parametrize("extra,topic", [
-    (["-pe1", "small.fastq", "-pe2", "small.fastq", "-A", "ACGT"], "paired"),
-    (["-l", "interleaved.fastq", "-A", "ACGT", "-L", "{tmp}/il.fastq"], "paired"),
+    (["-pe1", "paired.1.fastq", "-pe2", "paired.2.fastq", "-A", "ACGT",
+      "--aligner", "insert", "--correct-mismatches", "liberal"], "insert-correct"),
+    (["-l", "interleaved.fastq", "-A", "ACGT", "-L", "{tmp}/il.fastq",
+      "--aligner", "insert", "--merge-overlapping"], "engine"),
+    (["-pe1", "paired.1.fastq", "-pe2", "paired.2.fastq", "-A", "ACGT",
+      "--bisulfite", "swift"], "engine"),
+    (["-pe1", "paired.1.fastq", "-pe2", "paired.2.fastq", "-A", "ACGT",
+      "-w", "10,30,10"], "side-files"),
     (["-se", "small.fastq", "--threads", "2"], "multi-gpu"),
     (["-se", "small.fastq", "--stats", "both"], "side-files"),
     (["-se", "small.fastq", "--times", "2"], "engine"),

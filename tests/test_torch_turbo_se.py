@@ -422,3 +422,60 @@ def test_max_reads_and_empty_input(tmp_path):
         )
         assert jax_files == port_files
         assert jax_summary == port_summary
+
+
+def test_adapter_whose_column_exceeds_shared_memory(tmp_path, monkeypatch):
+    """A 1,200-base adapter against reads of about 3,000 bases at 30 %
+    errors: its cell needs the 64-bit word and its column does not fit a
+    block's shared memory even for one warp, a shape the card once
+    refused. On ``cpu`` the port gives the bytes and the statistics of
+    ``atropos_tpu``'s scalar pipeline, its executable spec: for adapters
+    of this length ``atropos_tpu``'s own turbo runner differs from that
+    pipeline (ROADMAP.md, queue 3), so it is not the yardstick here."""
+    from atropos_tpu_torch.align.cuda_kernel import THREADS_PER_BLOCK, CudaAligner
+
+    rng = seeded("long-adapter")
+    adapter = _bases(rng, 1200)
+    records = []
+    for i in range(12):
+        length = int(rng.integers(2900, 3000))
+        seq = list(_bases(rng, length))
+        if i % 2:
+            start = int(rng.integers(100, length - 600))
+            frag = list(adapter[: length - start])
+            for _ in range(int(rng.integers(0, 40))):
+                frag[int(rng.integers(len(frag)))] = _bases(rng, 1)
+            seq[start:] = frag
+        records.append(("long{}".format(i), "".join(seq), "I" * len(seq)))
+    inp = write_reads(str(tmp_path / "long.fastq"), records)
+    out = str(tmp_path / "out.fastq")
+    argv = [
+        "-a", "long=" + adapter, "-e", "0.3", "--no-indels", "-se", inp, "-o", out,
+        "--quiet", "--adapter-cache-file", str(tmp_path / ".adapters"),
+        "--report-file", str(tmp_path / "report.txt"),
+    ]
+    aligner = CudaAligner(adapter, 0.3, 14, indel_cost=100000, device="cpu")
+    kernel = aligner.kernel_for(3008)
+    assert kernel.name == "dp_locate_wide"
+    assert kernel.block_layout(1200) == (THREADS_PER_BLOCK, True)
+
+    results = []
+    for which in ("jax", "port"):
+        if os.path.exists(out):
+            os.remove(out)
+        if which == "jax":
+            monkeypatch.setenv("ATROPOS_TPU_ENGINE", "0")
+            retcode, summary = jax_commands.get_command("trim").execute(argv)
+            monkeypatch.delenv("ATROPOS_TPU_ENGINE")
+            assert summary["mode"] == "serial"
+        else:
+            retcode, summary = port_commands.get_command("trim").execute(
+                argv, device="cpu"
+            )
+            assert summary["mode"] == "turbo"
+        assert retcode == 0
+        with open(out, "rb") as handle:
+            results.append((handle.read(), _comparable(summary)["trim"]))
+    assert results[0][0] == results[1][0]
+    assert results[0][1] == results[1][1]
+    assert results[1][1]["modifiers"]["AdapterCutter"]["records_with_adapters"][0] > 0
