@@ -16,7 +16,8 @@ Modules carry the names of their ``atropos_tpu`` counterparts:
 - ``atropos_tpu_torch.adapters``  — adapter parsing/matching/caching
 - ``atropos_tpu_torch.runtime``   — native FASTQ/FASTA parser, packer, formatter
 - ``atropos_tpu_torch.engine``    — the turbo single-end and paired-end runners and their device steps
-- ``atropos_tpu_torch.commands``  — the trim command, CLI, reports
+- ``atropos_tpu_torch.commands``  — the trim command, CLI, reports, read statistics
+- ``atropos_tpu_torch.tools``     — measurement tools (the dtype probe of the DP column body)
 
 The package imports ``torch`` and ``numpy`` only. Every entry point takes
 its device explicitly; ``None`` means ``cuda``, and only an explicit
@@ -35,10 +36,6 @@ class AtroposError(Exception):
 #: what is still to be ported, keyed by a short topic name; the values
 #: name the ROADMAP.md queue item that will bring it
 ROADMAP_ITEMS = {
-    "side-files": (
-        "queue 1 item 3 (info/rest/wildcard side files, --stats, "
-        "demultiplexing, -w overwrite)"
-    ),
     "engine": (
         "queue 1 item 4 (TrimEngine and the scalar pipeline for "
         "configurations the turbo runner declines, colorspace)"

@@ -4,13 +4,15 @@ Layout-compatible with the reference
 (``atropos/commands/legacy_report.py:223-942``): a run summary, the
 trimming count/bp tables, per-adapter removed-length histograms with
 expected-by-chance columns and per-length error-count mini-histograms,
-and adjacent-base warnings. The byte-level layout equals that of
+adjacent-base warnings, and the pre-/post-trim read-statistics tables
+(``--stats``). The byte-level layout equals that of
 ``atropos_tpu/commands/legacy_report.py``.
 """
+import math
 import textwrap
 
 from atropos_tpu_torch.io import open_output
-from atropos_tpu_torch.util import truncate_string
+from atropos_tpu_torch.util import truncate_string, weighted_median
 
 INDENT = "  "
 PARAGRAPH = textwrap.TextWrapper()
@@ -231,12 +233,14 @@ class RowPrinter(Printer):
 
 
 def generate_report(summary, outfile):
-    """Legacy report: summary + trim sections (the pre/post read-statistics
-    sections of ``atropos_tpu/commands/legacy_report.py`` belong to
-    ``--stats`` and the qc command, which are not part of this package)."""
+    """Full legacy report: summary + trim + pre/post stats sections."""
     print_summary_report(summary, outfile)
     if "trim" in summary:
         print_trim_report(summary, outfile)
+    if "pre" in summary:
+        print_pre_trim_report(summary, outfile)
+    if "post" in summary:
+        print_post_trim_report(summary, outfile)
 
 
 def generate_trim_report(summary, outfile):
@@ -709,3 +713,174 @@ class _AdapterSection:
             return True
         self.emit()
         return False
+
+
+# -- read-statistics sections -----------------------------------------------------------
+
+
+def print_pre_trim_report(summary, outfile):
+    title = TitlePrinter(outfile)
+    emit = Printer(outfile)
+    title("Pre-trimming stats", level=1)
+    for source, data in summary["pre"].items():
+        _print_source_block(summary, title, emit)
+        print_stats_report(data, outfile)
+
+
+def print_post_trim_report(summary, outfile):
+    title = TitlePrinter(outfile)
+    emit = Printer(outfile)
+    title("Post-trimming stats", level=1)
+    for dest, stats in summary["post"].items():
+        title("Destination: {}".format(dest), level=2)
+        for source, data in stats.items():
+            _print_source_block(summary, title, emit)
+            print_stats_report(data, outfile)
+
+
+def _print_source_block(summary, title, emit):
+    title("Source", level=3, newline=False)
+    for read, src in enumerate(summary["input"]["input_names"], 1):
+        if src is not None:
+            emit("Read {}: {}".format(read, src))
+    emit()
+
+
+def print_stats_report(data, outfile):
+    _StatsSection(data, outfile).write()
+
+
+class _StatsSection:
+    """FastQC-style tables for one stats block; one column per mate."""
+
+    def __init__(self, data, outfile):
+        self._data = data
+        self._reads = ["read1", "read2"] if "read2" in data else ["read1"]
+        self._title = TitlePrinter(outfile)
+        counts = max(self._data[r]["counts"] for r in self._reads)
+        width = len(str(counts))
+        width += (width // 3) + 1
+        self._row = RowPrinter(outfile, (35, width))
+
+    @property
+    def paired(self):
+        return len(self._reads) > 1
+
+    def write(self):
+        row = self._row
+        row("", *("Read{}".format(i + 1) for i in range(len(self._reads))),
+            header=True)
+        row(
+            "Read pairs:" if self.paired else "Reads:",
+            *(self._data[r]["counts"] for r in self._reads),
+        )
+        row()
+        self._histogram("Sequence lengths:", "lengths", "hist")
+        self._histogram("Sequence qualities:", "qualities", "hist")
+        self._histogram("Sequence GC content (%)", "gc", "hist")
+        self._tile_histograms(
+            "per-tile sequence qualities (%)", "tile_sequence_qualities"
+        )
+        self._base_histograms("base qualities (%)", "base_qualities")
+        self._base_histograms("base composition (%)", "bases")
+        self._tile_base_histograms(
+            "per-tile base qualities (%)", "tile_base_qualities"
+        )
+
+    # -- table renderers ---------------------------------------------------
+
+    def _histogram(self, heading, key1, key2):
+        if key1 not in self._data["read1"]:
+            return
+        self._title(heading, level=2)
+        hists = [self._data[r][key1][key2] for r in self._reads]
+        if hists[0] is None:
+            self._row("No Data")
+        else:
+            if self.paired:
+                keys = sorted(set(hists[0]) | set(hists[1]))
+                body = (
+                    (k, hists[0].get(k, 0), hists[1].get(k, 0)) for k in keys
+                )
+            else:
+                body = sorted(hists[0].items(), key=lambda x: x[0])
+            for row in body:
+                self._row(*row)
+        self._row()
+
+    def _base_table(self, heading, hist, extra_width=4, index_name="Pos"):
+        self._title(heading, level=2)
+        if hist is None:
+            self._row("No Data")
+            return
+        self._row(
+            index_name, *hist["columns"], header=True, extra_width=extra_width
+        )
+        for pos, counts in hist["rows"].items():
+            total = sum(counts)
+            self._row(
+                pos,
+                *(round(count * 100 / total, 1) for count in counts),
+                extra_width=extra_width,
+            )
+
+    def _tile_width(self, ncolumns):
+        per_tile = math.ceil(self._data["read1"]["counts"] / ncolumns)
+        return max(4, len(str(per_tile))) + 1
+
+    def _tile_histograms(self, heading, key):
+        if key not in self._data["read1"]:
+            return
+        for read in self._reads:
+            hist = self._data[read][key]
+            label = "Read {} {}".format(read[-1], heading)
+            if hist is None:
+                self._title(label, level=2)
+                self._row("No Data")
+            else:
+                self._base_table(
+                    label,
+                    hist,
+                    extra_width=self._tile_width(len(hist["columns"])),
+                    index_name="Tile",
+                )
+            self._row()
+
+    def _base_histograms(self, heading, key):
+        if key not in self._data["read1"]:
+            return
+        for read in self._reads:
+            self._base_table(
+                "Read {} {}".format(read[-1], heading), self._data[read][key]
+            )
+            self._row()
+
+    def _tile_base_histograms(self, heading, key):
+        if key not in self._data["read1"]:
+            return
+        for read in self._reads:
+            self._one_tile_base_histogram(
+                "Read {} {}".format(read[-1], heading), self._data[read][key]
+            )
+            if self.paired:
+                self._row()
+
+    def _one_tile_base_histogram(self, heading, hist):
+        """Median quality per (position, tile)."""
+        self._title(heading, level=2)
+        if hist is None:
+            self._row("No Data")
+            return
+        quals = hist["columns"]
+        tiles = hist["columns2"]
+        width = self._tile_width(len(tiles))
+        self._row("Pos", *tiles, header=True, extra_width=width)
+        for pos, tile_rows in hist["rows"].items():
+            self._row(
+                pos,
+                *(
+                    weighted_median(list(quals), list(counts))
+                    for counts in tile_rows.values()
+                ),
+                extra_width=width,
+            )

@@ -12,11 +12,12 @@ raise :class:`~atropos_tpu_torch.NotPortedError`.
 import logging
 import textwrap
 
-from atropos_tpu_torch import NotPortedError
+from atropos_tpu_torch import NotPortedError, resolve_device
 from atropos_tpu_torch.commands.base import BaseCommandRunner
 from atropos_tpu_torch.commands.trim.builder import TrimStackBuilder
 from atropos_tpu_torch.commands.trim.pipeline import (  # noqa: F401
     RecordHandler,
+    StatsRecordHandlerWrapper,
     TrimSummary,
 )
 
@@ -43,16 +44,6 @@ def check_ported(options):
         raise NotPortedError("colorspace trimming", "engine")
     if options.threads is not None:
         raise NotPortedError("--threads", "multi-gpu")
-    if options.stats:
-        raise NotPortedError("--stats", "side-files")
-    if options.info_file or options.rest_file or options.wildcard_file:
-        raise NotPortedError(
-            "info/rest/wildcard side files", "side-files"
-        )
-    if options.output and "{name}" in str(options.output):
-        raise NotPortedError("demultiplexed output", "side-files")
-    if options.overwrite_low_quality:
-        raise NotPortedError("-w (overwrite low quality)", "side-files")
 
 
 class CommandRunner(BaseCommandRunner):
@@ -68,6 +59,16 @@ class CommandRunner(BaseCommandRunner):
 
         modifiers, filters, formatters, writers = TrimStackBuilder(self).build()
         record_handler = RecordHandler(modifiers, filters, formatters)
+        if options.stats:
+            # the statistics' position counts run where the run runs
+            record_handler = StatsRecordHandlerWrapper(
+                record_handler,
+                options.paired,
+                options.stats,
+                qualities=self.delivers_qualities,
+                quality_base=self.quality_base,
+                device=resolve_device(options.device),
+            )
 
         num_adapters = sum(len(a) for a in modifiers.get_adapters())
         logger.info(

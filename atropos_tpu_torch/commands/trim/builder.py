@@ -124,7 +124,14 @@ class TrimStackBuilder:
     def _op_overwrite(self, chain):
         if not self.options.overwrite_low_quality:
             return
-        raise NotPortedError("-w (overwrite low quality)", "side-files")
+        lowq, highq, window = self.options.overwrite_low_quality
+        chain.add_modifier(
+            mod.OverwriteRead,
+            worse_read_min_quality=lowq,
+            better_read_min_quality=highq,
+            window_size=window,
+            base=self.options.quality_base,
+        )
 
     def _op_adapters(self, chain):
         options = self.options

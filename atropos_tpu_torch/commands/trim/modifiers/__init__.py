@@ -9,7 +9,7 @@ chain. All names re-export here; behavior matches the reference
 (:mod:`atropos_tpu_torch.engine.turbo`) read each stage's parameters
 from the chain and accumulate its statistics into it. Of the pair-level
 modifiers of ``atropos_tpu/commands/trim/modifiers/paired.py`` only
-``InsertAdapterCutter`` has a counterpart here.
+``InsertAdapterCutter`` and ``OverwriteRead`` have counterparts here.
 """
 from atropos_tpu_torch.commands.trim.modifiers.base import (  # noqa: F401
     Modifier,
@@ -37,6 +37,7 @@ from atropos_tpu_torch.commands.trim.modifiers.single import (  # noqa: F401
 )
 from atropos_tpu_torch.commands.trim.modifiers.paired import (  # noqa: F401
     InsertAdapterCutter,
+    OverwriteRead,
 )
 
 

@@ -1,16 +1,21 @@
-"""Trim record handler and summary.
+"""Trim record handler, statistics wrapper and summary.
 
 The turbo runner (:mod:`atropos_tpu_torch.engine.turbo`) routes whole
 batches as interval arithmetic; what it needs from here is the holder of
 the modifier/filter/formatter stacks, whose ``summarize`` feeds the
-report, and the summary class that derives the fraction/total fields.
-The per-record scalar pipeline, the statistics wrapper and the
-multi-process result handlers of ``atropos_tpu/commands/trim/pipeline.py``
-are not part of this package.
+report, the ``--stats`` wrapper that holds the pre- and post-trim
+statistics tables the runner fills from its batch matrices, and the
+summary class that derives the fraction/total fields. The per-record
+scalar pipeline and the multi-process result handlers of
+``atropos_tpu/commands/trim/pipeline.py`` are not part of this package.
 """
 from collections.abc import Sequence
 
 from atropos_tpu_torch.commands.base import Summary
+from atropos_tpu_torch.commands.stats import (
+    PairedEndReadStatistics,
+    SingleEndReadStatistics,
+)
 
 
 class RecordHandler:
@@ -29,6 +34,51 @@ class RecordHandler:
                 formatters=self.formatters.summarize(),
             )
         )
+
+
+class StatsRecordHandlerWrapper:
+    """Pre- and/or post-trim statistics around a handler.
+
+    Post-trim statistics are kept per destination filter, so reports can
+    show the composition of kept vs discarded reads separately. The turbo
+    runner fills the tables (``pre`` and ``post``: source -> statistics,
+    ``post`` under each destination filter) from its batch matrices;
+    ``kwargs`` go to every statistics object (``qualities``,
+    ``quality_base``, ``device``), each side's options from
+    ``stats_args`` beside them.
+    """
+
+    def __init__(self, record_handler, paired, stats_args, **kwargs):
+        self.record_handler = record_handler
+        self.read_statistics_class = (
+            PairedEndReadStatistics if paired else SingleEndReadStatistics
+        )
+        self.pre = self.post = None
+        if "pre" in stats_args:
+            self.pre = {}
+            self.pre_kwargs = dict(kwargs, **stats_args["pre"])
+        if "post" in stats_args:
+            self.post = {}
+            self.post_kwargs = dict(kwargs, **stats_args["post"])
+
+    def summarize(self):
+        summary = self.record_handler.summarize()
+        if self.pre is not None:
+            summary["pre"] = {
+                source: stats.summarize()
+                for source, stats in self.pre.items()
+            }
+        if self.post is not None:
+            # route filters without a short name (Trimmed/Untrimmed) fall
+            # back to the class name, mirroring FilterWrapper.name
+            summary["post"] = {
+                getattr(dest, "name", dest.__name__): {
+                    source: stats.summarize()
+                    for source, stats in table.items()
+                }
+                for dest, table in self.post.items()
+            }
+        return summary
 
 
 class TrimSummary(Summary):

@@ -45,10 +45,13 @@ The device interaction is pipelined (``DEPTH`` batches in flight):
   A batch's pinned buffers go back to the free list only then.
 
 Quality and NextSeq trimming run on the host-native path (the windows are
-computed from the chunk buffer before the upload). Everything the turbo
-runners of ``atropos_tpu`` decline, and the sharded mesh, the device
-quality kernels, side files, ``--stats``, demultiplexing, ``-w`` and
-overlap error correction, raise :class:`~atropos_tpu_torch.NotPortedError`.
+computed from the chunk buffer before the upload). Side files (info,
+rest, wildcard), ``--stats`` (pre/post statistics collected from the
+batch matrices, their position counts on the run's device), ``{name}``
+demultiplexing and ``-w`` mate overwrite run on the runners as in
+``atropos_tpu``. Everything the turbo runners of ``atropos_tpu`` decline,
+and the sharded mesh, the device quality kernels and overlap error
+correction, raise :class:`~atropos_tpu_torch.NotPortedError`.
 
 Output is byte-identical to ``atropos_tpu``; all summary statistics
 (per-adapter histograms, trimmed-bp counters, filter counts) are
@@ -95,9 +98,15 @@ from atropos_tpu_torch.commands.trim.modifiers import (
     MinCutter,
     NEndTrimmer,
     NextseqQualityTrimmer,
+    OverwriteRead,
     QualityTrimmer,
     ReadPairModifier,
     UnconditionalCutter,
+)
+from atropos_tpu_torch.commands.trim.writers import (
+    InfoFormatter,
+    RestFormatter,
+    WildcardFormatter,
 )
 from atropos_tpu_torch.engine import _PrefixSuffixMatcher, make_batch_aligner
 from atropos_tpu_torch.io import xopen
@@ -200,7 +209,7 @@ class _Inflight:
     __slots__ = (
         "bundle", "event", "slot", "chunk", "sub", "batch", "width", "pad_b",
         "keep_start", "keep_stop", "n", "seqs",
-        "match_data", "win_start", "win_stop", "qclip",
+        "match_data", "win_start", "win_stop", "qclip", "alt", "ow",
     )
 
     def __init__(self, **kw):
@@ -211,6 +220,8 @@ class _Inflight:
         self.win_start = None
         self.win_stop = None
         self.qclip = None
+        self.alt = None
+        self.ow = None
         for key, val in kw.items():
             setattr(self, key, val)
 
@@ -707,15 +718,36 @@ class _MateLane:
             return self._free_slots.pop()
         return _Slot(pin=self.device.type == "cuda")
 
-    def prepare(self, chunk, sub):
+    @staticmethod
+    def _patch_rows(mat, overrides, key, keep_start, width):
+        """Overwrite gathered matrix rows with replacement content (mate
+        overwrite): row ``rows[i]`` becomes ``overrides[key][i]`` shifted
+        to the row's gather origin ``keep_start[row]``."""
+        src = overrides[key]
+        new_n = overrides["n"]
+        for r_i, row in enumerate(overrides["rows"]):
+            ks = int(keep_start[row])
+            take = min(width, max(0, int(new_n[r_i]) - ks))
+            mat[row, :take] = src[r_i, ks : ks + take]
+            mat[row, take:] = 0
+        return mat
+
+    def prepare(self, chunk, sub, overrides=None):
         """Host-side batch prep: fixed cuts, the native host quality
         windows, the host window gather, the pack decision, and the
         staging of the device arguments in the batch's slot. Returns
         (token, args | None, bits) where args = (main, win16, tables |
         None) are host tensors that feed :meth:`_step` once uploaded
         (``tables`` None: raw upload, decoded with the lane's own
-        256-entry views)."""
+        256-entry views).
+
+        ``overrides`` (mate overwrite, ``-w``) replaces whole reads
+        before any stage sees them: dict(rows, n, seq, qual) with full
+        replacement content per affected row. Such a batch goes up raw
+        (the replacement bytes are host-side, not in the chunk buffer)."""
         n = chunk.seq_len[sub].astype(np.int32)
+        if overrides is not None:
+            n[overrides["rows"]] = overrides["n"]
         batch = n.shape[0]
         keep_start = np.zeros(batch, np.int32)
         keep_stop = n.copy()
@@ -744,6 +776,8 @@ class _MateLane:
         # anchored matchers, adapter statistics and N-counting; never
         # uploaded when packing is active)
         seqs = self._gather(chunk, sub, chunk.seq_off, keep_start, width, pad_b)
+        if overrides is not None:
+            self._patch_rows(seqs, overrides, "seq", keep_start, width)
         win_len = keep_stop - keep_start
         qclip = None
 
@@ -751,7 +785,7 @@ class _MateLane:
             # native host quality path: windows + stats computed here,
             # nothing quality-related crosses the link
             g_stop, q_start, q_stop = self._native_quality(
-                chunk, sub, keep_start, win_len
+                chunk, sub, keep_start, win_len, overrides
             )
             wl = keep_stop - keep_start
             if self.nextseq is not None:
@@ -775,6 +809,10 @@ class _MateLane:
                 seqs = self._gather(
                     chunk, sub, chunk.seq_off, keep_start, width, pad_b
                 )
+                if overrides is not None:
+                    self._patch_rows(
+                        seqs, overrides, "seq", keep_start, width
+                    )
             qclip = (keep_start - cut_start, cut_stop - keep_stop)
 
         tok = _Inflight(
@@ -797,7 +835,7 @@ class _MateLane:
         win_np = win16.numpy()
         win_np[:batch] = win_len
         win_np[batch:] = 0
-        pack = _pack_info(chunk)
+        pack = _pack_info(chunk) if overrides is None else None
         if pack is not None:
             bits, code_lut, symbols = pack
             main = slot.buffer(
@@ -811,15 +849,16 @@ class _MateLane:
             )
             tables.numpy()[...] = self._decode_tables(symbols, 1 << bits)
         else:
-            # raw upload (> 16 distinct symbols): the window bytes cross
-            # the link as they are and the lane's 256-entry views decode
+            # raw upload (> 16 distinct symbols, or overwritten rows): the
+            # window bytes cross the link as they are and the lane's
+            # 256-entry views decode
             bits = 0
             main = slot.buffer("main", (pad_b, width), torch.uint8)
             main.numpy()[...] = seqs
             tables = None
         return tok, (main, win16, tables), bits
 
-    def submit(self, chunk, sub):
+    def submit(self, chunk, sub, overrides=None):
         """Prepare the batch, upload it and run the device step; nothing
         here waits for the device. On a CUDA device the upload goes
         ``non_blocking`` from the slot's pinned buffers on the side
@@ -827,7 +866,7 @@ class _MateLane:
         bundle is copied into the slot's pinned fetch buffer followed by
         the token's event."""
         began = time.perf_counter()
-        tok, args, bits = self.prepare(chunk, sub)
+        tok, args, bits = self.prepare(chunk, sub, overrides=overrides)
         prepared = time.perf_counter()
         self.prepare_seconds += prepared - began
         if args is not None:
@@ -1140,11 +1179,12 @@ class _MateLane:
 
     # -- helpers ------------------------------------------------------------
 
-    def _native_quality(self, chunk, sub, keep_start, win_len):
+    def _native_quality(self, chunk, sub, keep_start, win_len, overrides=None):
         """Relative (g_stop, q_start, q_stop) window arrays for this
         lane's NextSeq/quality stages, computed by the native host
         kernel straight from the chunk buffer (scalar spec
-        ``commands/trim/qualtrim.py``)."""
+        ``commands/trim/qualtrim.py``); mate-overwritten rows are
+        recomputed from their replacement content."""
         batch = win_len.shape[0]
         extra = keep_start.astype(np.int64)
         qual_offs = np.ascontiguousarray(chunk.qual_off[sub] + extra, np.int64)
@@ -1164,7 +1204,71 @@ class _MateLane:
             batch, base, nextseq_cut, has_q, cf, cb,
             _i32(g_stop), _i32(q_start), _i32(q_stop),
         )
+        if overrides is not None:
+            self._override_quality(
+                overrides, keep_start, win_len, g_stop, q_start, q_stop,
+                nextseq_cut, has_q, cf, cb, base,
+            )
         return g_stop, q_start, q_stop
+
+    @staticmethod
+    def _override_quality(overrides, keep_start, win_len, g_stop, q_start,
+                          q_stop, nextseq_cut, has_q, cf, cb, base):
+        """Recompute the quality windows of mate-overwritten rows from
+        their replacement content (the native kernel read the chunk
+        buffer; these rows' bytes live in the overrides arrays)."""
+        for r_i, row in enumerate(overrides["rows"]):
+            start_w = int(keep_start[row])
+            length = int(win_len[row])
+            if length <= 0:
+                g_stop[row] = 0
+                q_start[row] = 0
+                q_stop[row] = 0
+                continue
+            quals = overrides["qual"][r_i, start_w : start_w + length]
+            seqs = overrides["seq"][r_i, start_w : start_w + length]
+            if nextseq_cut >= 0:
+                acc = best = 0
+                maxi = length
+                for j in range(length - 1, -1, -1):
+                    qv = int(quals[j]) - base
+                    if seqs[j] == ord("G"):
+                        qv = nextseq_cut - 1
+                    acc += nextseq_cut - qv
+                    if acc < 0:
+                        break
+                    if acc > best:
+                        best = acc
+                        maxi = j
+                g_stop[row] = maxi
+                length = maxi
+            else:
+                g_stop[row] = length
+            if not has_q:
+                q_start[row] = 0
+                q_stop[row] = length
+                continue
+            start, stop = 0, length
+            acc = best = 0
+            for j in range(length):
+                acc += cf - (int(quals[j]) - base)
+                if acc < 0:
+                    break
+                if acc > best:
+                    best = acc
+                    start = j + 1
+            acc = best = 0
+            for j in range(length - 1, -1, -1):
+                acc += cb - (int(quals[j]) - base)
+                if acc < 0:
+                    break
+                if acc > best:
+                    best = acc
+                    stop = j
+            if start >= stop:
+                start, stop = 0, 0
+            q_start[row] = start
+            q_stop[row] = stop
 
     def _gather(self, chunk, sub, offs, extra_off, width, pad_b=None):
         offs_sub = np.ascontiguousarray(
@@ -1951,12 +2055,21 @@ def validate_pair_names(chunk1, sub1, chunk2, sub2, interleaved=False):
         )
 
 
-def _record_byte_lengths(chunk, sub, keep_start, keep_stop, keep, fmt):
+def _record_byte_lengths(chunk, sub, keep_start, keep_stop, keep, fmt,
+                         alt=None):
     """Per-record output byte length for the KEPT records, matching the
-    native formatters' layout exactly."""
+    native formatters' layout exactly (alt-patched records use the
+    patch-window lengths)."""
     name_len = chunk.name_len[sub][keep].astype(np.int64)
     klen = np.maximum(keep_stop - keep_start, 0)[keep].astype(np.int64)
     plus_len = chunk.plus_len[sub][keep].astype(np.int64)
+    if alt is not None:
+        _, alt_sb, alt_se, _, alt_nb, alt_nl, _, alt_pl = alt
+        patched = alt_sb[keep] >= 0
+        klen = np.where(patched, (alt_se - alt_sb)[keep], klen)
+        renamed = alt_nb[keep] >= 0
+        name_len = np.where(renamed, alt_nl[keep], name_len)
+        plus_len = np.where(renamed, alt_pl[keep], plus_len)
     if fmt == "fasta":
         return 2 + name_len + klen + 1
     return 4 + name_len + 2 * klen + plus_len + 2
@@ -1983,8 +2096,13 @@ def _interleave_records(parts1, parts2):
     return src[idx].tobytes()
 
 
-def _format_records(chunk, sub, keep_start, keep_stop, keep, fmt="fastq"):
-    """Native formatter: trimmed FASTQ/FASTA bytes for the kept records."""
+def _format_records(chunk, sub, keep_start, keep_stop, keep, fmt="fastq",
+                    alt=None):
+    """Native formatter: trimmed FASTQ/FASTA bytes for the kept records.
+    ``alt`` = (buf, seq_beg, seq_end, qual_beg, name_beg, name_len,
+    plus_beg, plus_len) supplies replacement bytes for records whose
+    content changed (mate overwrite swaps in the partner's whole record;
+    -1 in seq_beg and name_beg marks the records that keep their own)."""
     name_off = np.ascontiguousarray(chunk.name_off[sub])
     name_len = np.ascontiguousarray(chunk.name_len[sub])
     seq_off = np.ascontiguousarray(chunk.seq_off[sub])
@@ -1992,6 +2110,8 @@ def _format_records(chunk, sub, keep_start, keep_stop, keep, fmt="fastq"):
     kp = np.ascontiguousarray(keep_stop, np.int32)
     kmask = np.ascontiguousarray(keep.astype(np.uint8))
     kept_bp = int(np.maximum(kp - ks, 0)[keep].sum())
+    if alt is not None:
+        kept_bp += int(np.maximum(alt[2] - alt[1], 0)[keep].sum())
     if fmt == "fasta":
         cap = int(name_len.sum()) + kept_bp + name_off.shape[0] * 4 + 16
         out = np.empty(cap, dtype=np.uint8)
@@ -2010,6 +2130,20 @@ def _format_records(chunk, sub, keep_start, keep_stop, keep, fmt="fastq"):
             name_len.sum() + plus_len.sum() + 2 * kept_bp
             + name_off.shape[0] * 8 + 16
         )
+        if alt is None:
+            alt_args = (None,) * 8
+        else:
+            cap += int(alt[5][keep].sum() + alt[7][keep].sum())
+            alt_args = (
+                _u8(alt[0]),
+                _i64(np.ascontiguousarray(alt[1], np.int64)),
+                _i64(np.ascontiguousarray(alt[2], np.int64)),
+                _i64(np.ascontiguousarray(alt[3], np.int64)),
+                _i64(np.ascontiguousarray(alt[4], np.int64)),
+                _i32(np.ascontiguousarray(alt[5], np.int32)),
+                _i64(np.ascontiguousarray(alt[6], np.int64)),
+                _i32(np.ascontiguousarray(alt[7], np.int32)),
+            )
         out = np.empty(cap, dtype=np.uint8)
         written = runtime.lib().fastq_format_trimmed(
             _u8(chunk.buf),
@@ -2020,7 +2154,7 @@ def _format_records(chunk, sub, keep_start, keep_stop, keep, fmt="fastq"):
             _i32(ks), _i32(kp), _u8(kmask),
             name_off.shape[0],
             _u8(out), cap,
-            None, None, None, None, None, None, None, None,
+            *alt_args,
         )
     if written < 0:
         raise RuntimeError("format capacity exceeded")
@@ -2096,6 +2230,24 @@ class _TurboRunnerBase:
             "engine",
         )
 
+    @staticmethod
+    def _unwrap_handler(record_handler):
+        """(inner RecordHandler, stats wrapper | None), or a decline-reason
+        string. ``--stats`` runs through turbo: pre/post ReadStatistics
+        collect straight from the gathered matrices (only per-tile
+        statistics, which need per-record name parsing, decline)."""
+        from atropos_tpu_torch.commands.trim.pipeline import (
+            StatsRecordHandlerWrapper,
+        )
+
+        if not isinstance(record_handler, StatsRecordHandlerWrapper):
+            return record_handler, None
+        for kw_name in ("pre_kwargs", "post_kwargs"):
+            kwargs = getattr(record_handler, kw_name, None)
+            if kwargs and kwargs.get("tiles"):
+                return "per-tile statistics"
+        return record_handler.record_handler, record_handler
+
     @classmethod
     def _check_common(cls, command_runner, record_handler):
         """Shared eligibility gates; returns a decline reason or None."""
@@ -2118,15 +2270,6 @@ class _TurboRunnerBase:
             ):
                 return "unsupported filter %s" % ftype.__name__
         return None
-
-    @staticmethod
-    def _check_no_side_files(formatters):
-        if formatters.multiplexed:
-            raise NotPortedError("demultiplexed output", "side-files")
-        if formatters.info_formatters:
-            raise NotPortedError(
-                "info/rest/wildcard side files", "side-files"
-            )
 
     @staticmethod
     def _stream_format(path, explicit=None):
@@ -2184,7 +2327,8 @@ class _TurboRunnerBase:
         return fmts
 
     def _fmt_of(self, path):
-        """Output format for a destination path."""
+        """Output format for a destination path (lazily resolved for
+        demultiplex expansions)."""
         fmt = self._out_fmts.get(path)
         if fmt is None:
             fmt = self._stream_format(path)
@@ -2222,7 +2366,184 @@ class _TurboRunnerBase:
                 total_bp_counts=(),
                 sum_total_bp_count=0,
             )
-        summary.update(self.record_handler.summarize())
+        handler = self.stats if self.stats is not None else self.record_handler
+        summary.update(handler.summarize())
+
+    # -- side files (info/rest/wildcard) --------------------------------------
+
+    def _emit_side_files(self, mates):
+        """Write the configured side files (``--info-file``/``-r``/
+        ``--wildcard-file``) for one batch: per-record rows assembled
+        from the chunk buffer + stashed match data, byte-identical to
+        the formatters of ``commands/trim/writers.py``. Per-record Python
+        here is fine — side-file configs are inspection runs and the main
+        trim path stays fully vectorized."""
+        side = self.record_handler.formatters.info_formatters
+        if not side:
+            return
+        views = [self._side_view(lane, tok) for lane, tok in mates]
+        batch = mates[0][1].batch
+        rows_of = {
+            InfoFormatter: self._info_rows,
+            RestFormatter: self._rest_rows,
+            WildcardFormatter: self._wildcard_rows,
+        }
+        for formatter in side:
+            builder = rows_of[type(formatter)]
+            delim = formatter.delim
+            lines = []
+            for i in range(batch):
+                for view in views:
+                    for fields in builder(view, i):
+                        lines.append(
+                            delim.join(str(f) for f in fields) + "\n"
+                        )
+            if lines:
+                self._writer.write(
+                    self._open_output(formatter.path),
+                    "".join(lines).encode("latin-1"),
+                )
+
+    @staticmethod
+    def _side_view(lane, tok):
+        """Per-record strings for side-file assembly: full header names
+        plus the pre-adapter window's sequence/quality slices (the read
+        state AT MATCH TIME, which MatchInfo snapshots)."""
+        chunk, sub = tok.chunk, tok.sub
+        batch = tok.batch
+        buf = chunk.buf
+        name_off = chunk.name_off[sub]
+        name_len = chunk.name_len[sub]
+        seq_off = chunk.seq_off[sub]
+        qual_off = chunk.qual_off[sub]
+        qual_len = chunk.qual_len[sub]
+        ws = tok.win_start if tok.win_start is not None else tok.keep_start
+        wp = tok.win_stop if tok.win_stop is not None else tok.keep_stop
+
+        def text(off, start, stop):
+            return bytes(buf[off + start : off + stop]).decode("latin-1")
+
+        names = [
+            text(name_off[i], 0, name_len[i]) for i in range(batch)
+        ]
+        seqs = [
+            text(seq_off[i], ws[i], wp[i]) for i in range(batch)
+        ]
+        quals = [
+            text(qual_off[i], ws[i], wp[i]) if qual_len[i] else ""
+            for i in range(batch)
+        ]
+        return dict(
+            names=names, seqs=seqs, quals=quals,
+            md=tok.match_data, adapters=lane.adapters,
+        )
+
+    @staticmethod
+    def _info_rows(view, i):
+        md = view["md"]
+        if md is not None and md["matched"][i]:
+            seq = view["seqs"][i]
+            qual = view["quals"][i]
+            rstart = int(md["rstart"][i])
+            rstop = int(md["rstop"][i])
+            adapter = view["adapters"][int(md["best_idx"][i])]
+            yield (
+                view["names"][i], int(md["errors"][i]), rstart, rstop,
+                seq[:rstart], seq[rstart:rstop], seq[rstop:],
+                adapter.name,
+                qual[:rstart], qual[rstart:rstop], qual[rstop:],
+            )
+        else:
+            yield (view["names"][i], -1, view["seqs"][i], view["quals"][i])
+
+    @staticmethod
+    def _rest_rows(view, i):
+        md = view["md"]
+        if md is not None and md["matched"][i]:
+            seq = view["seqs"][i]
+            if md["front"][i]:
+                rest = seq[: int(md["rstart"][i])]
+            else:
+                rest = seq[int(md["rstop"][i]) :]
+            if rest:
+                yield (rest, view["names"][i])
+
+    @staticmethod
+    def _wildcard_rows(view, i):
+        md = view["md"]
+        if md is not None and md["matched"][i]:
+            seq = view["seqs"][i]
+            adapter = view["adapters"][int(md["best_idx"][i])]
+            astart = int(md["astart"][i])
+            rstart = int(md["rstart"][i])
+            length = int(md["astop"][i]) - astart
+            wildcards = "".join(
+                seq[rstart + j]
+                for j in range(length)
+                if adapter.sequence[astart + j] == "N"
+                and rstart + j < len(seq)
+            )
+            yield (wildcards, view["names"][i])
+
+    # -- --stats collection (pre/post ReadStatistics from matrices) -----------
+
+    @staticmethod
+    def _stats_obj(table, stats_class, kwargs):
+        if 0 not in table:
+            table[0] = stats_class(**kwargs)
+        return table[0]
+
+    @staticmethod
+    def _stats_parts(obj, n_mates):
+        return [obj] if n_mates == 1 else [obj.read1, obj.read2]
+
+    def _collect_turbo_stats(self, mates, dest_masks):
+        """Feed pre/post ReadStatistics straight from gathered matrices.
+
+        ``mates``: one (lane, tok, final_start, final_stop) per mate.
+        ``dest_masks``: [(filter type, row mask)] in routing order,
+        including the kept rows under NoFilter — exactly the scalar
+        wrapper's per-destination post tables.
+        """
+        stats = self.stats
+        if stats.pre is not None:
+            obj = self._stats_obj(
+                stats.pre, stats.read_statistics_class, stats.pre_kwargs
+            )
+            for part, (lane, tok, _, _) in zip(
+                self._stats_parts(obj, len(mates)), mates
+            ):
+                zero = np.zeros(tok.batch, np.int32)
+                seqs = lane._gather(
+                    tok.chunk, tok.sub, tok.chunk.seq_off, zero, tok.width
+                )
+                quals = lane._gather(
+                    tok.chunk, tok.sub, tok.chunk.qual_off, zero, tok.width
+                )
+                part.collect_matrices(seqs, quals, tok.n)
+        if stats.post is not None:
+            gathered = []
+            for lane, tok, start, stop in mates:
+                seqs = lane._gather(
+                    tok.chunk, tok.sub, tok.chunk.seq_off, start, tok.width
+                )
+                quals = lane._gather(
+                    tok.chunk, tok.sub, tok.chunk.qual_off, start, tok.width
+                )
+                gathered.append((seqs, quals, stop - start))
+            for ftype, mask in dest_masks:
+                if not mask.any():
+                    continue
+                table = stats.post.setdefault(ftype, {})
+                obj = self._stats_obj(
+                    table, stats.read_statistics_class, stats.post_kwargs
+                )
+                for part, (seqs, quals, lens) in zip(
+                    self._stats_parts(obj, len(mates)), gathered
+                ):
+                    part.collect_matrices(
+                        seqs[mask], quals[mask], lens[mask]
+                    )
 
 
 class TurboTrimRunner(_TurboRunnerBase):
@@ -2235,7 +2556,11 @@ class TurboTrimRunner(_TurboRunnerBase):
         options = command_runner.options
         if options.paired or options.interleaved_input:
             raise ValueError("paired input goes to TurboPairedRunner")
-        reason = cls._check_common(command_runner, record_handler)
+        unwrapped = cls._unwrap_handler(record_handler)
+        if isinstance(unwrapped, str):
+            return cls._decline(unwrapped)
+        inner, stats = unwrapped
+        reason = cls._check_common(command_runner, inner)
         if reason:
             return cls._decline(reason)
         input1 = options.input1
@@ -2244,30 +2569,39 @@ class TurboTrimRunner(_TurboRunnerBase):
         in_fmt = cls._stream_format(input1, options.format)
         if in_fmt is None:
             return cls._decline("unsupported input format")
-        cls._check_no_side_files(record_handler.formatters)
-        out_fmts = cls._collect_output_formats(record_handler.formatters)
+        output = options.output
+        if output and isinstance(output, str) and "{name}" in output:
+            # demultiplexing: every {name} expansion must be a plain
+            # stream path (routing happens per-adapter in the resolver)
+            if cls._stream_format(output.replace("{name}", "x")) is None:
+                return cls._decline("unsupported demultiplex template")
+        out_fmts = cls._collect_output_formats(inner.formatters)
         if isinstance(out_fmts, str):
             return cls._decline(out_fmts)
 
         mods = [
             entry[0] if isinstance(entry, list) else entry
-            for entry in record_handler.modifiers.modifiers
+            for entry in inner.modifiers.modifiers
         ]
         lane = _MateLane.from_modifier_list(mods, device=device)
         if isinstance(lane, str):
             return cls._decline(lane)
-        if in_fmt == "fasta" and lane._needs_quals:
-            return cls._decline("quality stage without qualities")
-        return cls(command_runner, record_handler, writers, lane, in_fmt,
+        if in_fmt == "fasta":
+            if lane._needs_quals:
+                return cls._decline("quality stage without qualities")
+            if stats is not None:
+                return cls._decline("--stats on quality-less input")
+        return cls(command_runner, inner, writers, lane, stats, in_fmt,
                    out_fmts)
 
     def __init__(self, command_runner, record_handler, writers, lane,
-                 in_fmt="fastq", out_fmts=None):
+                 stats=None, in_fmt="fastq", out_fmts=None):
         self.command_runner = command_runner
         self.options = command_runner.options
         self.record_handler = record_handler
         self.writers = writers
         self.lane = lane
+        self.stats = stats
         self._in_fmt = in_fmt
         self._out_fmts = dict(out_fmts or {})
 
@@ -2371,6 +2705,11 @@ class TurboTrimRunner(_TurboRunnerBase):
             dest_masks.append((ftype, hit))
 
         keep = dest_none
+        if self.stats is not None:
+            self._collect_turbo_stats(
+                [(self.lane, tok, keep_start, keep_stop)],
+                dest_masks + [(NoFilter, keep)],
+            )
         # per-destination routing: each dest with a formatter writes its
         # rows to that formatter's file (several dests may share a file —
         # the union mask preserves the scalar per-record byte order);
@@ -2388,6 +2727,21 @@ class TurboTrimRunner(_TurboRunnerBase):
                 )
 
         for ftype, mask in dest_masks + [(NoFilter, keep)]:
+            if formatters.multiplexed and ftype is NoFilter:
+                # demultiplex: kept matched reads route to the {name}
+                # expansion of their adapter; unmatched fall through to
+                # the NoFilter ('unknown') formatter below
+                best_idx = tok.match_data["best_idx"]
+                mux = mask & matched
+                for adapter_idx, adapter in enumerate(self.lane.adapters):
+                    sub_mask = mux & (best_idx == adapter_idx)
+                    count = int(sub_mask.sum())
+                    if count:
+                        route(
+                            formatters.get_mux_formatter(adapter.name),
+                            sub_mask, count,
+                        )
+                mask = mask & ~matched
             formatter = formatters.seq_formatters.get(ftype)
             count = int(mask.sum())
             if formatter is None:
@@ -2403,7 +2757,7 @@ class TurboTrimRunner(_TurboRunnerBase):
                     fmt=self._fmt_of(path),
                 ),
             )
-
+        self._emit_side_files([(self.lane, tok)])
 
 
 class TurboPairedRunner(_TurboRunnerBase):
@@ -2425,6 +2779,10 @@ class TurboPairedRunner(_TurboRunnerBase):
         options = command_runner.options
         if not options.paired:
             raise ValueError("single-end input goes to TurboTrimRunner")
+        unwrapped = cls._unwrap_handler(record_handler)
+        if isinstance(unwrapped, str):
+            return cls._decline(unwrapped)
+        record_handler, stats = unwrapped
         reason = cls._check_common(command_runner, record_handler)
         if reason:
             return cls._decline(reason)
@@ -2447,7 +2805,6 @@ class TurboPairedRunner(_TurboRunnerBase):
             in_fmt2 = cls._stream_format(input2, options.format)
             if in_fmt1 is None or in_fmt2 is None:
                 return cls._decline("unsupported paired input format")
-        cls._check_no_side_files(record_handler.formatters)
         out_fmts = cls._collect_output_formats(
             record_handler.formatters, allow_interleaved=True
         )
@@ -2456,11 +2813,23 @@ class TurboPairedRunner(_TurboRunnerBase):
 
         mods1, mods2 = [], []
         insert_cutter = None
-        for entry in record_handler.modifiers.modifiers:
+        overwrite = None
+        for pos, entry in enumerate(record_handler.modifiers.modifiers):
             if isinstance(entry, InsertAdapterCutter):
                 if insert_cutter is not None:
                     return cls._decline("multiple insert cutters")
                 insert_cutter = entry
+                continue
+            if isinstance(entry, OverwriteRead):
+                # -w: whole-read replacement by the partner's reverse
+                # complement. Two supported chain positions: FIRST
+                # (op-order 'WCGQA' — a vectorized pre-pass patches the
+                # lanes' inputs) and LAST (the default 'CGQAW' — a
+                # resolve-time swap on the trimmed windows).
+                if overwrite is not None:
+                    return cls._decline("multiple overwrite stages")
+                overwrite = entry
+                overwrite_pos = pos
                 continue
             if isinstance(entry, ReadPairModifier):
                 return cls._decline("pair modifier %s" % type(entry).__name__)
@@ -2468,6 +2837,23 @@ class TurboPairedRunner(_TurboRunnerBase):
                 mods1.append(entry[0])
             if entry[1] is not None:
                 mods2.append(entry[1])
+        overwrite_mode = None
+        if overwrite is not None:
+            n_entries = len(record_handler.modifiers.modifiers)
+            if overwrite_pos == 0:
+                overwrite_mode = "pre"
+            elif overwrite_pos == n_entries - 1:
+                overwrite_mode = "post"
+            else:
+                return cls._decline("overwrite mid-chain")
+            if insert_cutter is not None:
+                return cls._decline("overwrite with insert aligner")
+            if stats is not None:
+                return cls._decline("--stats with overwrite")
+            if record_handler.formatters.info_formatters:
+                return cls._decline("side files with overwrite")
+            if "fasta" in (in_fmt1, in_fmt2):
+                return cls._decline("overwrite without qualities")
         insert_pair = None
         if insert_cutter is not None:
             lane1 = _MateLane.from_modifier_list(
@@ -2493,21 +2879,27 @@ class TurboPairedRunner(_TurboRunnerBase):
         if "fasta" in (in_fmt1, in_fmt2):
             if lane1._needs_quals or lane2._needs_quals:
                 return cls._decline("quality stage without qualities")
+            if stats is not None:
+                return cls._decline("--stats on quality-less input")
         return cls(
-            command_runner, record_handler, writers, lane1, lane2,
-            insert_pair, (in_fmt1, in_fmt2), out_fmts,
+            command_runner, record_handler, writers, lane1, lane2, stats,
+            insert_pair, (in_fmt1, in_fmt2), out_fmts, overwrite,
+            overwrite_mode,
         )
 
     def __init__(self, command_runner, record_handler, writers, lane1, lane2,
-                 insert_pair=None, in_fmts=("fastq", "fastq"),
-                 out_fmts=None):
+                 stats=None, insert_pair=None, in_fmts=("fastq", "fastq"),
+                 out_fmts=None, overwrite=None, overwrite_mode=None):
         self.command_runner = command_runner
         self.options = command_runner.options
         self.record_handler = record_handler
         self.writers = writers
         self.lane1 = lane1
         self.lane2 = lane2
+        self.stats = stats
         self.insert_pair = insert_pair
+        self.overwrite = overwrite
+        self._ow_mode = overwrite_mode
         self._in_fmts = in_fmts
         self._out_fmts = dict(out_fmts or {})
 
@@ -2533,6 +2925,7 @@ class TurboPairedRunner(_TurboRunnerBase):
         self._resolve_seconds = 0.0
         self._chunk_wait = 0.0
         self._streams = []
+        self._overwritten = 0
         overflows = SLOT_OVERFLOWS["pairs"]
         quota = int_or_str(options.max_reads) or None
         if options.interleaved_input:
@@ -2566,6 +2959,7 @@ class TurboPairedRunner(_TurboRunnerBase):
             device_batches=device_batches,
             device_aligners=sum(len(lane._aligners) for lane in lanes),
             slot_overflow_pairs=SLOT_OVERFLOWS["pairs"] - overflows,
+            overwritten_pairs=self._overwritten,
             wall_seconds=time.perf_counter() - began,
             parse_seconds=sum(stream.seconds for stream in self._streams),
             chunk_wait_seconds=self._chunk_wait,
@@ -2601,8 +2995,15 @@ class TurboPairedRunner(_TurboRunnerBase):
                 self.insert_pair.submit(chunk1, sub1, chunk2, sub2)
             )
         else:
-            tok1 = self.lane1.submit(chunk1, sub1)
-            tok2 = self.lane2.submit(chunk2, sub2)
+            ov1 = ov2 = None
+            if self.overwrite is not None and self._ow_mode == "pre":
+                ov1, ov2 = self._compute_overwrite(
+                    chunk1, sub1, chunk2, sub2
+                )
+            tok1 = self.lane1.submit(chunk1, sub1, overrides=ov1)
+            tok2 = self.lane2.submit(chunk2, sub2, overrides=ov2)
+            tok1.ow = ov1
+            tok2.ow = ov2
             self._inflight.append((tok1, tok2))
         while len(self._inflight) >= self.DEPTH:
             self._resolve_item(self._inflight.popleft())
@@ -2692,6 +3093,189 @@ class TurboPairedRunner(_TurboRunnerBase):
         finally:
             stream.close()
 
+    # -- -w: mate overwrite --------------------------------------------------
+
+    def _window_mean(self, chunk, sub, keep_start=None):
+        """Mean quality of each read's first ``window_size`` bases from
+        ``keep_start`` on (the read's start when None)."""
+        ow = self.overwrite
+        win = ow.window_size
+        offs = chunk.qual_off[sub].astype(np.int64)
+        lens = chunk.qual_len[sub].astype(np.int32)
+        if keep_start is not None:
+            offs = offs + keep_start.astype(np.int64)
+            lens = lens - keep_start.astype(np.int32)
+        offs = np.ascontiguousarray(offs, np.int64)
+        lens = np.ascontiguousarray(lens, np.int32)
+        out = np.zeros((offs.shape[0], win), np.uint8)
+        runtime.lib().gather_padded(
+            _u8(chunk.buf), _i64(offs), _i32(lens), offs.shape[0], win, _u8(out),
+        )
+        return (out.astype(np.int64).sum(axis=1) - win * ow.base) / win
+
+    def _overwrite_masks(self, eligible, score1, score2):
+        """(ow1, ow2): the pairs whose mate 1 (mate 2) is replaced."""
+        ow = self.overwrite
+        worse, better = ow.worse_read_min_quality, ow.better_read_min_quality
+        ow1 = eligible & (score1 < worse) & (score2 >= better)
+        ow2 = eligible & ~ow1 & (score2 < worse) & (score1 >= better)
+        return ow1, ow2
+
+    def _compute_overwrite(self, chunk1, sub1, chunk2, sub2):
+        """Vectorized OverwriteRead (``-w``) pre-pass (reference
+        ``modifiers.py:511-563``): per pair, the mean quality of the
+        first W bases decides whether one mate is replaced by the
+        reverse complement of the other. Returns per-mate lane overrides
+        (None = no replacements on that side)."""
+        win = self.overwrite.window_size
+        len1 = chunk1.seq_len[sub1].astype(np.int64)
+        len2 = chunk2.seq_len[sub2].astype(np.int64)
+        eligible = (len1 >= win) & (len2 >= win)
+        if not eligible.any():
+            return None, None
+        ow1, ow2 = self._overwrite_masks(
+            eligible,
+            self._window_mean(chunk1, sub1),
+            self._window_mean(chunk2, sub2),
+        )
+
+        def overrides(mask, src_chunk, src_sub, src_len):
+            rows = np.nonzero(mask)[0]
+            if rows.size == 0:
+                return None
+            abs_idx = np.arange(src_chunk.n)[src_sub][rows]
+            lens = src_len[rows].astype(np.int32)
+            wmax = max(1, int(lens.max()))
+            offs_s = np.ascontiguousarray(src_chunk.seq_off[abs_idx], np.int64)
+            offs_q = np.ascontiguousarray(src_chunk.qual_off[abs_idx], np.int64)
+            lens_c = np.ascontiguousarray(lens, np.int32)
+            seq = np.zeros((rows.size, wmax), np.uint8)
+            qual = np.zeros((rows.size, wmax), np.uint8)
+            runtime.lib().gather_padded(
+                _u8(src_chunk.buf), _i64(offs_s), _i32(lens_c),
+                rows.size, wmax, _u8(seq),
+            )
+            runtime.lib().gather_padded(
+                _u8(src_chunk.buf), _i64(offs_q), _i32(lens_c),
+                rows.size, wmax, _u8(qual),
+            )
+            comp = _complement_lut()[seq]
+            for i in range(rows.size):
+                length = int(lens[i])
+                seq[i, :length] = comp[i, :length][::-1]
+                qual[i, :length] = qual[i, :length][::-1].copy()
+            return dict(
+                rows=rows, n=lens, seq=seq, qual=qual,
+                src_chunk=src_chunk, abs_idx=abs_idx,
+            )
+
+        return (
+            overrides(ow1, chunk2, sub2, len2),
+            overrides(ow2, chunk1, sub1, len1),
+        )
+
+    @staticmethod
+    def _alt_arrays(batch, rows, src_chunk, abs_idx, seg):
+        """An empty alt layout for ``rows`` of a batch: the buffer sized
+        for each row's ``seg`` bases of sequence and quality plus the
+        source record's name and plus lines, and per-row offsets (-1 for
+        rows that keep their own record)."""
+        nlens = src_chunk.name_len[abs_idx].astype(np.int64)
+        plens = src_chunk.plus_len[abs_idx].astype(np.int64)
+        buf = np.empty(int(2 * seg.sum() + nlens.sum() + plens.sum()), np.uint8)
+        offsets = [np.full(batch, -1, np.int64) for _ in range(5)]
+        lengths = [np.zeros(batch, np.int32) for _ in range(2)]
+        return buf, offsets, lengths, nlens, plens
+
+    @classmethod
+    def _fill_alt(cls, tok, rows, src_chunk, abs_idx, segments):
+        """Set ``tok.alt``: for row ``rows[i]`` the sequence and quality
+        bytes ``segments[i]`` = (seq, qual) and the name and plus line of
+        source record ``abs_idx[i]`` of ``src_chunk``."""
+        seg = np.array([len(seq) for seq, _ in segments], np.int64)
+        buf, (sb, se, qb, nb, pb), (nl, pl), nlens, plens = cls._alt_arrays(
+            tok.batch, rows, src_chunk, abs_idx, seg
+        )
+        w = 0
+        for i, row in enumerate(rows):
+            seq, qual = segments[i]
+            length = len(seq)
+            sb[row] = w
+            se[row] = w + length
+            buf[w : w + length] = seq
+            w += length
+            qb[row] = w
+            buf[w : w + length] = qual
+            w += length
+            n_len, n_off = int(nlens[i]), int(src_chunk.name_off[abs_idx[i]])
+            nb[row] = w
+            nl[row] = n_len
+            buf[w : w + n_len] = src_chunk.buf[n_off : n_off + n_len]
+            w += n_len
+            p_len, p_off = int(plens[i]), int(src_chunk.plus_off[abs_idx[i]])
+            pb[row] = w
+            pl[row] = p_len
+            buf[w : w + p_len] = src_chunk.buf[p_off : p_off + p_len]
+            w += p_len
+        tok.alt = (buf, sb, se, qb, nb, nl, pb, pl)
+
+    def _build_overwrite_alt(self, tok, keep_start, keep_stop):
+        """Output patch data for the records the pre-pass overwrote: the
+        final (post-trim) replacement seq/qual windows plus the partner's
+        name/plus header bytes."""
+        ov = tok.ow
+        if ov is None:
+            return
+        segments = []
+        for i, row in enumerate(ov["rows"]):
+            a = int(keep_start[row])
+            length = max(0, int(keep_stop[row]) - a)
+            segments.append(
+                (ov["seq"][i, a : a + length], ov["qual"][i, a : a + length])
+            )
+        self._fill_alt(tok, ov["rows"], ov["src_chunk"], ov["abs_idx"], segments)
+
+    def _overwrite_post(self, tok1, tok2, ks1, kp1, ks2, kp2):
+        """W-last OverwriteRead (default 'CGQAW' op order): the quality
+        window is measured on the TRIMMED reads, and the replacement is
+        the reverse complement of the partner's trimmed window. Sets the
+        affected rows' alt output data on each token and returns the
+        (ow1, ow2) replacement masks, or None when no pair triggers."""
+        win = self.overwrite.window_size
+        eligible = ((kp1 - ks1) >= win) & ((kp2 - ks2) >= win)
+        if not eligible.any():
+            return None
+        ow1, ow2 = self._overwrite_masks(
+            eligible,
+            self._window_mean(tok1.chunk, tok1.sub, ks1),
+            self._window_mean(tok2.chunk, tok2.sub, ks2),
+        )
+        if not (ow1.any() or ow2.any()):
+            return None
+        comp = _complement_lut()
+
+        def build_alt(tok_dst, mask, tok_src, ks_src, kp_src):
+            rows = np.nonzero(mask)[0]
+            if rows.size == 0:
+                return
+            chunk = tok_src.chunk
+            abs_idx = np.arange(chunk.n)[tok_src.sub][rows]
+            segments = []
+            for i, row in enumerate(rows):
+                a, b = int(ks_src[row]), int(kp_src[row])
+                b = max(a, b)
+                s_off = int(chunk.seq_off[abs_idx[i]])
+                q_off = int(chunk.qual_off[abs_idx[i]])
+                segments.append((
+                    comp[chunk.buf[s_off + a : s_off + b][::-1]],
+                    chunk.buf[q_off + a : q_off + b][::-1],
+                ))
+            self._fill_alt(tok_dst, rows, chunk, abs_idx, segments)
+
+        build_alt(tok1, ow1, tok2, ks2, kp2)
+        build_alt(tok2, ow2, tok1, ks1, kp1)
+        return ow1, ow2
+
     # -- resolve: windows -> pair filters -> formatters ------------------------
 
     def _resolve_item(self, item):
@@ -2712,7 +3296,29 @@ class TurboPairedRunner(_TurboRunnerBase):
                 ks2, kp2, matched2 = self.lane2.resolve_windows(tok2)
             ks1, kp1 = self.lane1.apply_post(tok1, ks1, kp1, matched1)
             ks2, kp2 = self.lane2.apply_post(tok2, ks2, kp2, matched2)
-            self._finish_pair(tok1, tok2, ks1, kp1, matched1, ks2, kp2, matched2)
+            ow_masks = None
+            if self.overwrite is not None:
+                if self._ow_mode == "pre":
+                    for tok, ks, kp in ((tok1, ks1, kp1), (tok2, ks2, kp2)):
+                        self._build_overwrite_alt(tok, ks, kp)
+                        if tok.ow is not None:
+                            self._overwritten += len(tok.ow["rows"])
+                else:
+                    ow_masks = self._overwrite_post(
+                        tok1, tok2, ks1, kp1, ks2, kp2
+                    )
+                    if ow_masks is not None:
+                        ow1, ow2 = ow_masks
+                        self._overwritten += int((ow1 | ow2).sum())
+                        # the replaced read carries a COPY of its partner's
+                        # match (Sequence.reverse_complement provenance)
+                        m1, m2 = matched1, matched2
+                        matched1 = np.where(ow1, m2, m1)
+                        matched2 = np.where(ow2, m1, m2)
+            self._finish_pair(
+                tok1, tok2, ks1, kp1, matched1, ks2, kp2, matched2,
+                ow=ow_masks,
+            )
         finally:
             self._resolve_seconds += time.perf_counter() - began
 
@@ -2723,9 +3329,17 @@ class TurboPairedRunner(_TurboRunnerBase):
         )
 
     def _finish_pair(self, tok1, tok2, ks1, kp1, matched1, ks2, kp2,
-                     matched2):
+                     matched2, ow=None):
         len1 = kp1 - ks1
         len2 = kp2 - ks2
+        if ow is not None:
+            # W-last overwrite: a replaced mate's filter-visible state
+            # (length, N content) is its partner's trimmed window — the
+            # reverse complement preserves both
+            ow1, ow2 = ow
+            raw1, raw2 = len1, len2
+            len1 = np.where(ow1, raw2, raw1)
+            len2 = np.where(ow2, raw1, raw2)
 
         # pair filters in registration order (first match wins). The
         # PairedWrapper combines per-mate criteria with min_affected
@@ -2737,10 +3351,26 @@ class TurboPairedRunner(_TurboRunnerBase):
             c1 = self.lane1.criterion_hits(
                 ftype, wrapper, tok1, ks1, kp1, matched1
             )
+            if ow is not None and ow1.any():
+                c1 = np.where(
+                    ow1,
+                    self.lane2.criterion_hits(
+                        ftype, wrapper, tok2, ks2, kp2, matched1
+                    ),
+                    c1,
+                )
             if isinstance(wrapper, PairedWrapper):
                 c2 = self.lane2.criterion_hits(
                     ftype, wrapper, tok2, ks2, kp2, matched2
                 )
+                if ow is not None and ow2.any():
+                    c2 = np.where(
+                        ow2,
+                        self.lane1.criterion_hits(
+                            ftype, wrapper, tok1, ks1, kp1, matched2
+                        ),
+                        c2,
+                    )
                 hit = (c1 | c2) if wrapper.min_affected == 1 else (c1 & c2)
             else:
                 hit = c1
@@ -2750,6 +3380,14 @@ class TurboPairedRunner(_TurboRunnerBase):
             dest_masks.append((ftype, hit))
 
         keep = dest_none
+        if self.stats is not None:
+            self._collect_turbo_stats(
+                [
+                    (self.lane1, tok1, ks1, kp1),
+                    (self.lane2, tok2, ks2, kp2),
+                ],
+                dest_masks + [(NoFilter, keep)],
+            )
         # per-destination routing (see the SE runner): dests with a
         # SingleEndFormatter write mate 1 only — the scalar semantics when
         # a side output was given without its paired counterpart
@@ -2786,28 +3424,26 @@ class TurboPairedRunner(_TurboRunnerBase):
                     partial(
                         _format_records,
                         tok.chunk, tok.sub, ks, kp, mask,
-                        fmt=self._fmt_of(path),
+                        fmt=self._fmt_of(path), alt=tok.alt,
                     ),
                 )
 
         def interleave(fmt, mask):
-            return _interleave_records(
+            return _interleave_records(*(
                 (
-                    _format_records(tok1.chunk, tok1.sub, ks1, kp1, mask, fmt),
-                    _record_byte_lengths(
-                        tok1.chunk, tok1.sub, ks1, kp1, mask, fmt
+                    _format_records(
+                        tok.chunk, tok.sub, ks, kp, mask, fmt, alt=tok.alt
                     ),
-                ),
-                (
-                    _format_records(tok2.chunk, tok2.sub, ks2, kp2, mask, fmt),
                     _record_byte_lengths(
-                        tok2.chunk, tok2.sub, ks2, kp2, mask, fmt
+                        tok.chunk, tok.sub, ks, kp, mask, fmt, alt=tok.alt
                     ),
-                ),
-            )
+                )
+                for tok, ks, kp in ((tok1, ks1, kp1), (tok2, ks2, kp2))
+            ))
 
         for path, mask in masks_il.items():
             self._writer.write(
                 self._open_output(path),
                 partial(interleave, self._fmt_of(path), mask),
             )
+        self._emit_side_files([(self.lane1, tok1), (self.lane2, tok2)])

@@ -11,8 +11,9 @@ and prints one JSON object a line:
 
 1. ``device``   the card's name and power limit as ``nvidia-smi`` gives them
 2. ``build``    seconds for ``nvcc`` (the DP kernels, the diagonal-count
-                kernels) and ``g++`` (the host runtime), all built in
-                parallel from the sources in the checkout
+                kernels, the dtype probe's kernels) and ``g++`` (the host
+                runtime), all built in parallel from the sources in the
+                checkout
 3. ``grid``     ``dp_locate_word32`` and ``dp_locate_wide`` against the plain
                 PyTorch DP on the card over a covering set of configurations
                 (indel costs 1, 2, 3 and 100000; adapters of 1,200 and 2,000
@@ -36,13 +37,35 @@ and prints one JSON object a line:
 8. ``pe_insert_wide_path``  200,000 pairs of 2x300 (inserts of mean 400):
                 the window is > 255, so this path launches ``diag_counts_i32``
 9. ``pe_adapter_path``  the 2x150 pairs with ``--aligner adapter``
-10. ``goldens``  five upstream single-end cases and every paired-end case of
+10. ``pe_side_path``  the 2x150 pairs with ``--aligner insert --stats both
+                --info-file -r``: the statistics' position counts run on the
+                card; ``diag_counts_u8`` launches
+11. ``pe_overwrite_path``  1,000,000 new pairs of 2x150, a tenth of them
+                with one mate's 5' window at quality 2 and the other's at 35,
+                through ``--aligner adapter -w 10,30,10``
+12. ``se_side_path``  2,000,000 reads of 150 bases, a quarter each carrying a
+                TruSeq, a Nextera and a small-RNA UMI adapter, through ``-o
+                out.{name}.fastq --info-file -r --wildcard-file --stats both``
+                with the three adapters named
+13. ``dtype_probe``  ``dtype_probe_i32`` and ``dtype_probe_i16x2`` against
+                their plain version (the whole final state, both shapes of the
+                probe tool, query byte moving and fixed, 3 seeds), their times,
+                and the probe tool's run on the card
+14. ``goldens``  seven upstream single-end cases (the info file and the
+                demultiplexed outputs among them) and every paired-end case of
                 the ported slice on the card against ``tests/conformance``
-11. ``kernels``  for each kernel: launches on its path (counts set to 0 just
+15. ``kernels``  for each kernel: launches on its path (counts set to 0 just
                 before the path and read just after), error against the plain
                 version, time at the path's shape, the plain version's time
                 and the card's bound for the same work
-12. the last line: ``{"ok": true, "device": {...}}``
+16. the last line: ``{"ok": true, "device": {...}}``
+
+Every path whose output the card makes also runs on ``--device cpu`` for a
+prefix of its input, ``(DEPTH + 2) x MAX_BATCH`` = 163,840 reads or pairs:
+the CPU's outputs must be byte-identical prefixes of the card's (the side
+files and every demultiplexed file among them); for the side paths the card
+also runs the prefix alone, and its statistics and report must equal the
+CPU's.
 
 Any phase that fails raises: the script then exits non-zero without the
 last line. Without a usable card it exits non-zero at once.
@@ -81,7 +104,10 @@ from atropos_tpu_torch.align.insert_kernel import (  # noqa: E402
     diag_counts_i32,
     diag_counts_u8,
 )
+from atropos_tpu_torch.commands import get_command  # noqa: E402
+from atropos_tpu_torch.commands import stats  # noqa: E402
 from atropos_tpu_torch.engine import turbo  # noqa: E402
+from atropos_tpu_torch.tools import dtype_probe  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRUSEQ = "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
@@ -89,6 +115,7 @@ TRUSEQ = "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
 TRUSEQ2 = "AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT"
 PAIRS = 1000000  # 2x150 pairs of the insert and adapter paired-end paths
 WIDE_PAIRS = 200000  # 2x300 pairs of the wide insert path
+SIDE_READS = 2000000  # 150-base reads of the single-end side path
 # pairs of each paired-end path run again on the CPU: a pair batch holds at
 # most MAX_BATCH pairs, so this prefix holds the card's first DEPTH + 2
 # batches whole, and batches DEPTH + 1 and DEPTH + 2 reuse pinned upload and
@@ -96,7 +123,11 @@ WIDE_PAIRS = 200000  # 2x300 pairs of the wide insert path
 CPU_PAIRS = (turbo.TurboPairedRunner.DEPTH + 2) * turbo.TurboPairedRunner.MAX_BATCH
 DEVICE = torch.device("cuda", 0)
 HBM_BYTES_PER_SECOND = 3.35e12  # H100 SXM data sheet
-INT32_LANES_PER_SM = 64
+# integer operations an SM can issue a clock: 4 schedulers, one warp
+# instruction of 32 lanes each. The SM's 64 INT32 lanes alone bound no mixed
+# integer body: Hopper also issues integer adds and moves on its FMA pipes,
+# and the dtype probe's 32-bit kernel ran faster than 64 lanes allow.
+INT_OPS_PER_SM_CLOCK = 128
 
 BACK, FRONT, ANYWHERE, PREFIX, SUFFIX = 14, 11, 15, 8, 2
 BASES = np.frombuffer(b"ACGT", np.uint8)
@@ -142,7 +173,7 @@ def phase_build():
             target=timed,
             args=("nvcc " + name + ".cu", partial(_build.build, name, verbose=True)),
         )
-        for name in ("dp_align", "diag_counts")
+        for name in ("dp_align", "diag_counts", "dtype_probe")
     ] + [threading.Thread(target=timed, args=("g++ fastq.cpp", runtime.lib))]
     began = time.perf_counter()
     for job in jobs:
@@ -151,19 +182,17 @@ def phase_build():
         job.join()
     if errors:
         raise RuntimeError("build failed: {}".format(errors))
+    nvcc = ("nvcc dp_align.cu", "nvcc diag_counts.cu", "nvcc dtype_probe.cu")
     ptxas = [
         line.strip()
-        for name in ("nvcc dp_align.cu", "nvcc diag_counts.cu")
+        for name in nvcc
         for line in results[name][0][1].splitlines()
         if "registers" in line or "Compiling entry" in line
     ]
     emit({
         "build": {
             "seconds": time.perf_counter() - began,
-            "nvcc_seconds": {
-                name: results[name][1]
-                for name in ("nvcc dp_align.cu", "nvcc diag_counts.cu")
-            },
+            "nvcc_seconds": {name: results[name][1] for name in nvcc},
             "gxx_seconds": results["g++ fastq.cpp"][1],
             "flags": " ".join(_build.NVCC_FLAGS),
             "ptxas": ptxas,
@@ -397,7 +426,7 @@ def time_kernel(kernel, aligner, reads_T, lens, launches=20):
     clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
     ops_ms = (
         int(cells) * cuda_kernel.OPS_PER_CELL
-        / (props.multi_processor_count * INT32_LANES_PER_SM * clock_hz) * 1e3
+        / (props.multi_processor_count * INT_OPS_PER_SM_CLOCK * clock_hz) * 1e3
     )
     bytes_ms = (L * B + 4 * B + 32 * B) / HBM_BYTES_PER_SECOND * 1e3
     return dict(
@@ -481,7 +510,7 @@ def time_diag(kernel, ref_T, query_T, m_col, launches=20):
     """Median time of one launch of a diagonal-count kernel, its plain
     version's time, and the bound for this batch: the compares it needs
     (sum over pairs and diagonals s of min(W, m - s)) at one integer
-    operation a lane and clock, against both planes read once and the
+    operation each, against both planes read once and the
     counts written once."""
     for _ in range(3):
         kernel(ref_T, query_T, m_col)
@@ -507,7 +536,7 @@ def time_diag(kernel, ref_T, query_T, m_col, launches=20):
     )
     props = torch.cuda.get_device_properties(0)
     clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
-    ops_ms = compares / (props.multi_processor_count * INT32_LANES_PER_SM * clock_hz) * 1e3
+    ops_ms = compares / (props.multi_processor_count * INT_OPS_PER_SM_CLOCK * clock_hz) * 1e3
     out_bytes = W * B * out.element_size()
     bytes_ms = (2 * W * B + 4 * B + out_bytes) / HBM_BYTES_PER_SECOND * 1e3
     return dict(
@@ -813,7 +842,7 @@ COMPLEMENT[np.frombuffer(b"ACGT", np.uint8)] = np.frombuffer(b"TGCA", np.uint8)
 
 
 def write_pairs(path1, path2, rng, n_pairs, read_len, mean, sd, poly_a=(0, 0),
-                chunk=100000):
+                chunk=100000, low_window=None):
     """Read pairs of ``read_len`` bases from both ends of inserts whose
     lengths are normal (``mean``, ``sd``) clipped to 40-500: mate 1 reads
     the insert and then the TruSeq read-1 adapter, mate 2 the insert's
@@ -821,10 +850,15 @@ def write_pairs(path1, path2, rng, n_pairs, read_len, mean, sd, poly_a=(0, 0),
     bases; 1 % substitutions on both mates. Pairs ``poly_a[0]`` up to
     ``poly_a[1]`` are near-poly-A instead (mate 1 all A but one C, mate 2
     all T): dozens of admissible insert diagonals, more than the bundle's
-    candidate slots. Names end in /1 and /2. Returns the insert lengths,
-    -1 for the poly-A pairs."""
+    candidate slots. With ``low_window`` = (share, window), that share of
+    the pairs has one mate (either, at random) whose first ``window``
+    qualities are 2 and a partner whose first ``window`` are 35: a mate
+    that ``-w`` replaces. Names end in /1 and /2. Returns the insert
+    lengths, -1 for the poly-A pairs, and the number of pairs planted with
+    a low window."""
     inserts = np.clip(np.rint(rng.normal(mean, sd, n_pairs)), 40, 500).astype(np.int64)
     inserts[poly_a[0] : poly_a[1]] = -1
+    n_low = 0
     t = np.arange(read_len)[None, :]
     adapters = [np.frombuffer(a.encode("ascii"), np.uint8) for a in (TRUSEQ, TRUSEQ2)]
     with open(path1, "wb") as out1, open(path2, "wb") as out2:
@@ -854,17 +888,32 @@ def write_pairs(path1, path2, rng, n_pairs, read_len, mean, sd, poly_a=(0, 0),
                 mates[0][rows, rng.integers(20, 80, rows.size)] = ord("C")
                 mates[1][poly] = ord("T")
             ids = np.arange(first, first + count)
-            for out, reads, suffix in ((out1, mates[0], b"/1"), (out2, mates[1], b"/2")):
-                quals = (33 + rng.integers(2, 41, (count, read_len))).astype(np.uint8)
-                out.write(fastq_block(ids, reads, quals, suffix))
-    return inserts
+            quals = [(33 + rng.integers(2, 41, (count, read_len))).astype(np.uint8)
+                     for _ in (0, 1)]
+            if low_window is not None:
+                share, window = low_window
+                planted = rng.random(count) < share
+                low = rng.integers(0, 2, count)
+                for mate in (0, 1):
+                    quals[mate][planted & (low == mate), :window] = 33 + 2
+                    quals[mate][planted & (low != mate), :window] = 33 + 35
+                n_low += int(planted.sum())
+            for out, reads, qual, suffix in (
+                (out1, mates[0], quals[0], b"/1"), (out2, mates[1], quals[1], b"/2"),
+            ):
+                out.write(fastq_block(ids, reads, qual, suffix))
+    return inserts, n_low
 
 
-def pe_argv(aligner, in1, in2, out1, out2, work):
+def pe_argv(aligner, in1, in2, out1, out2, work, report="report_pe.txt", named=False):
+    """A paired command line; ``named`` names the two adapters (their
+    names then stand in the summary and the side files, where an unnamed
+    adapter's number depends on how many the process has seen)."""
+    ad1, ad2 = ("ad1=" + TRUSEQ, "ad2=" + TRUSEQ2) if named else (TRUSEQ, TRUSEQ2)
     return [
-        "trim", "--aligner", aligner, "-a", TRUSEQ, "-A", TRUSEQ2,
+        "trim", "--aligner", aligner, "-a", ad1, "-A", ad2,
         "-pe1", in1, "-pe2", in2, "-o", out1, "-p", out2,
-        "--quiet", "--no-cache-adapters", "--report-file", os.path.join(work, "report_pe.txt"),
+        "--quiet", "--no-cache-adapters", "--report-file", os.path.join(work, report),
     ]
 
 
@@ -915,7 +964,7 @@ def phase_pe_insert(work, seed, n_pairs, read_len, mean, kernel, poly_a):
     in1 = os.path.join(work, "pairs{}.1.fastq".format(read_len))
     in2 = os.path.join(work, "pairs{}.2.fastq".format(read_len))
     began = time.perf_counter()
-    inserts = write_pairs(in1, in2, rng, n_pairs, read_len, mean, 70, poly_a)
+    inserts, _ = write_pairs(in1, in2, rng, n_pairs, read_len, mean, 70, poly_a)
     made = time.perf_counter() - began
     outs = [os.path.join(work, "trimmed_pe.{}.fastq".format(i)) for i in (1, 2)]
     argv = pe_argv("insert", in1, in2, *outs, work)
@@ -972,6 +1021,370 @@ def phase_pe_adapter(work, inputs, n_pairs):
         batches=run["batches"], launches=counts, split_seconds=split_seconds(run),
         cpu_check=cpu,
     )
+
+
+# -- the side paths: --stats, side files, demultiplexing, -w --------------------
+
+#: the adapters of the single-end side path: (name, sequence)
+SIDE_ADAPTERS = (
+    ("truseq", TRUSEQ),
+    ("nextera", "CTGTCTCTTATACACATCT"),
+    ("umi", "TGGAATTCTCNNNNNNCCAAGG"),
+)
+#: records of each side path run again on the CPU (and alone on the card)
+PREFIX = turbo.TurboTrimRunner.MAX_BATCH * (turbo.TurboTrimRunner.DEPTH + 2)
+
+
+def write_side_fastq(path, rng, n_reads, read_len=150, chunk=250000):
+    """Reads of ``read_len`` bases: a quarter each carry one of
+    ``SIDE_ADAPTERS`` at a random offset (cut off at the read's end; the
+    UMI adapter with random bases in its N run), a quarter carry none; 1 %
+    substitutions over every read. Returns the adapter index of each read
+    (3: none)."""
+    kinds_all = []
+    with open(path, "wb") as out:
+        for first in range(0, n_reads, chunk):
+            count = min(chunk, n_reads - first)
+            reads = BASES[rng.integers(0, 4, (count, read_len))]
+            kinds = rng.integers(0, 4, count)
+            offsets = rng.integers(0, read_len, count)
+            for idx, (_, seq) in enumerate(SIDE_ADAPTERS):
+                adapter = np.frombuffer(seq.encode("ascii"), np.uint8)
+                rows = np.nonzero(kinds == idx)[0]
+                copies = np.broadcast_to(adapter, (rows.size, adapter.size)).copy()
+                wild = adapter == ord("N")
+                copies[:, wild] = BASES[rng.integers(0, 4, (rows.size, int(wild.sum())))]
+                cols = offsets[rows][:, None] + np.arange(adapter.size)[None, :]
+                inside = cols < read_len
+                row_idx = np.broadcast_to(rows[:, None], cols.shape)
+                reads[row_idx[inside], cols[inside]] = copies[inside]
+            subs = rng.random((count, read_len)) < 0.01
+            reads = np.where(subs, BASES[rng.integers(0, 4, (count, read_len))], reads)
+            quals = (33 + rng.integers(2, 41, (count, read_len))).astype(np.uint8)
+            out.write(fastq_block(np.arange(first, first + count), reads.astype(np.uint8), quals))
+            kinds_all.append(kinds)
+    return np.concatenate(kinds_all)
+
+
+def write_prefix(path, records, out_path):
+    """The first ``records`` FASTQ records of ``path`` into ``out_path``."""
+    with open(path, "rb") as src, open(out_path, "wb") as dst:
+        for _ in range(4 * records):
+            dst.write(src.readline())
+    return out_path
+
+
+def run_trim_summary(argv, device):
+    """One command line through the trim command's entry point, as
+    :func:`run_trim` does, also returning the run's summary and how many
+    position counts of the statistics ran on each device type."""
+    cuda_kernel.reset_launch_counts()
+    insert_kernel.reset_launch_counts()
+    stats_before = dict(stats.DEVICE_STATS_COUNTS)
+    began = time.perf_counter()
+    retcode, summary = get_command("trim").execute(argv[1:], device=device)
+    seconds = time.perf_counter() - began
+    counts = dict(cuda_kernel.launch_counts(), **insert_kernel.launch_counts())
+    if retcode != 0 or "exception" in summary:
+        raise RuntimeError("trim failed ({}): {} {}".format(
+            retcode, argv, summary.get("exception")))
+    stats_counts = {
+        key: stats.DEVICE_STATS_COUNTS[key] - stats_before[key] for key in stats_before
+    }
+    return seconds, counts, dict(turbo.LAST_RUN), summary, stats_counts
+
+
+def _plain_json(value):
+    return json.loads(json.dumps(value, default=str))
+
+
+def _report_sections(path):
+    """A report from its trimming section on (the header holds the command
+    line and the times)."""
+    with open(path, "rb") as handle:
+        data = handle.read()
+    return data[data.index(b"--------\nTrimming"):]
+
+
+def prefix_checks(make_argv, inputs, card_outs, work, tag):
+    """The side path's checks against ``--device cpu``: the first
+    ``PREFIX`` records of ``inputs`` through the CPU, whose every output
+    must be a byte-identical prefix of the card's full run
+    (``card_outs``); and the same prefix through the card alone, whose
+    statistics, report and summary must equal the CPU's. ``make_argv``
+    (inputs, folder) -> (argv, outputs, report)."""
+    prefixes = [
+        write_prefix(path, PREFIX, os.path.join(work, "{}_prefix.{}.fastq".format(tag, i)))
+        for i, path in enumerate(inputs)
+    ]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        folder = os.path.join(work, "{}_{}".format(tag, device))
+        os.makedirs(folder)
+        argv, outs, report = make_argv(prefixes, folder)
+        seconds, counts, run, summary, stats_counts = run_trim_summary(argv, device)
+        if device == "cpu":
+            check(sum(counts.values()) == 0, counts)
+        runs[device] = dict(seconds=seconds, run=run, outs=outs, report=report,
+                            summary=summary, stats_counts=stats_counts)
+    cpu, card = runs["cpu"], runs["cuda"]
+    check(cpu["stats_counts"]["cuda"] == 0, cpu["stats_counts"])
+    sizes = {}
+    for cpu_out, card_prefix_out, card_out in zip(cpu["outs"], card["outs"], card_outs):
+        if not os.path.exists(cpu_out):
+            # a side file with no rows in the prefix is not written
+            check(not os.path.exists(card_prefix_out), card_prefix_out)
+            continue
+        with open(cpu_out, "rb") as handle:
+            cpu_bytes = handle.read()
+        with open(card_out, "rb") as handle:
+            card_prefix = handle.read(len(cpu_bytes))
+        check(cpu_bytes == card_prefix, "CPU and GPU outputs differ: " + card_out)
+        sizes[os.path.basename(card_out)] = len(cpu_bytes)
+    for key in ("pre", "post", "trim"):
+        check(_plain_json(cpu["summary"].get(key)) == _plain_json(card["summary"].get(key)),
+              "{}: the card's and the CPU's '{}' differ on the prefix".format(tag, key))
+    check(_report_sections(cpu["report"]) == _report_sections(card["report"]),
+          tag + ": the card's and the CPU's reports differ on the prefix")
+    if "pre" in card["summary"] or "post" in card["summary"]:
+        check(card["stats_counts"]["cuda"] > 0, card["stats_counts"])
+    for prefix in prefixes:
+        os.remove(prefix)
+    return {
+        "records": PREFIX, "cpu_seconds": cpu["seconds"],
+        "card_prefix_seconds": card["seconds"], "identical_prefix_bytes": sizes,
+        "stats_counts_on_the_card_prefix": card["stats_counts"],
+    }, runs
+
+
+def count_records(path):
+    if not os.path.exists(path):
+        return 0
+    with open(path, "rb") as handle:
+        return sum(chunk.count(b"\n") for chunk in iter(lambda: handle.read(1 << 24), b"")) // 4
+
+
+def phase_se_side(work, seed, n_reads):
+    """Demultiplexing by three named adapters with info, rest and wildcard
+    files and pre- and post-trim statistics."""
+    rng = np.random.default_rng([seed, 9])
+    fastq = os.path.join(work, "side.fastq")
+    began = time.perf_counter()
+    kinds = write_side_fastq(fastq, rng, n_reads)
+    made = time.perf_counter() - began
+
+    def make_argv(inputs, folder):
+        out = os.path.join(folder, "out.{name}.fastq")
+        side = [os.path.join(folder, name) for name in ("info.txt", "rest.txt", "wc.txt")]
+        report = os.path.join(folder, "report.txt")
+        argv = ["trim"]
+        for name, seq in SIDE_ADAPTERS:
+            argv += ["-a", "{}={}".format(name, seq)]
+        argv += ["-se", inputs[0], "-o", out, "--info-file", side[0], "-r", side[1],
+                 "--wildcard-file", side[2], "--stats", "both",
+                 "--quiet", "--no-cache-adapters", "--report-file", report]
+        names = [name for name, _ in SIDE_ADAPTERS] + ["unknown"]
+        return argv, [out.format(name=name) for name in names] + side, report
+
+    folder = os.path.join(work, "se_side_card")
+    os.makedirs(folder)
+    argv, outs, _ = make_argv([fastq], folder)
+    seconds, counts, run, summary, stats_counts = run_trim_summary(argv, "cuda")
+    check(run["device"].startswith("cuda") and run["reads"] == n_reads, run)
+    check(counts["dp_locate_word32"] == run["batches"] * run["device_aligners"] > 0, (counts, run))
+    check(run["device_aligners"] == len(SIDE_ADAPTERS), run)
+    check(stats_counts["cuda"] > 0 and stats_counts["cpu"] == 0, stats_counts)
+    per_name = {
+        os.path.basename(path): count_records(path) for path in outs[: len(SIDE_ADAPTERS) + 1]
+    }
+    written = summary["trim"]["formatters"]["records_written"]
+    check(sum(per_name.values()) == n_reads == written, (per_name, written))
+    for idx, (name, _) in enumerate(SIDE_ADAPTERS):
+        check(per_name["out.{}.fastq".format(name)] > int((kinds == idx).sum()) // 2, per_name)
+    check(os.path.getsize(outs[-3]) > 0, "empty info file")
+    cpu, runs = prefix_checks(make_argv, [fastq], outs, work, "se_side")
+    os.remove(fastq)
+    shutil.rmtree(folder, ignore_errors=True)
+    return dict(
+        argv="trim -a truseq=... -a nextera=... -a umi=... -se IN -o out.{name}.fastq "
+             "--info-file -r --wildcard-file --stats both",
+        reads=n_reads, read_length=150, make_input_seconds=made, seconds=seconds,
+        reads_per_second=n_reads / seconds, batches=run["batches"], launches=counts,
+        records_per_name=per_name, stats_counts=stats_counts,
+        split_seconds=split_seconds(run),
+        cpu_check=cpu,
+    )
+
+
+def phase_pe_side(work, inputs, n_pairs):
+    """The 2x150 pairs with the insert aligner, ``--stats both``, an info
+    and a rest file."""
+
+    def make_argv(paths, folder):
+        outs = [os.path.join(folder, "trimmed.{}.fastq".format(i)) for i in (1, 2)]
+        side = [os.path.join(folder, name) for name in ("info.txt", "rest.txt")]
+        report = os.path.join(folder, "report.txt")
+        argv = pe_argv("insert", *paths, *outs, folder, report, named=True)
+        argv += ["--stats", "both", "--info-file", side[0], "-r", side[1]]
+        return argv, outs + side, report
+
+    folder = os.path.join(work, "pe_side_card")
+    os.makedirs(folder)
+    argv, outs, _ = make_argv(inputs, folder)
+    seconds, counts, run, summary, stats_counts = run_trim_summary(argv, "cuda")
+    check(run["device"].startswith("cuda") and run["pairs"] == n_pairs, run)
+    check(run["aligner"] == "insert", run)
+    check(counts["diag_counts_u8"] == run["batches"] > 0, (counts, run))
+    check(counts["dp_locate_word32"] == run["batches"] * run["device_aligners"], (counts, run))
+    check(stats_counts["cuda"] > 0 and stats_counts["cpu"] == 0, stats_counts)
+    pre = next(iter(summary["pre"].values()))
+    check(pre["read1"]["counts"] == pre["read2"]["counts"] == n_pairs, "pre-trim statistics")
+    cpu, _ = prefix_checks(make_argv, inputs, outs, work, "pe_side")
+    shutil.rmtree(folder, ignore_errors=True)
+    return dict(
+        argv="trim --aligner insert -a TRUSEQ -A TRUSEQ2 -pe1 -pe2 -o -p --stats both "
+             "--info-file -r",
+        pairs=n_pairs, seconds=seconds, pairs_per_second=n_pairs / seconds,
+        batches=run["batches"], launches=counts, stats_counts=stats_counts,
+        split_seconds=split_seconds(run), cpu_check=cpu,
+    )
+
+
+def phase_pe_overwrite(work, seed, n_pairs):
+    """``-w 10,30,10`` with the adapter aligner on pairs of which a tenth
+    have one mate with a low-quality 5' window."""
+    rng = np.random.default_rng([seed, 10])
+    inputs = [os.path.join(work, "ow.{}.fastq".format(i)) for i in (1, 2)]
+    began = time.perf_counter()
+    _, planted = write_pairs(*inputs, rng, n_pairs, 150, 220, 70, low_window=(0.1, 10))
+    made = time.perf_counter() - began
+
+    def make_argv(paths, folder):
+        outs = [os.path.join(folder, "trimmed.{}.fastq".format(i)) for i in (1, 2)]
+        report = os.path.join(folder, "report.txt")
+        argv = pe_argv("adapter", *paths, *outs, folder, report, named=True)
+        return argv + ["-w", "10,30,10"], outs, report
+
+    folder = os.path.join(work, "pe_overwrite_card")
+    os.makedirs(folder)
+    argv, outs, _ = make_argv(inputs, folder)
+    seconds, counts, run, _, _ = run_trim_summary(argv, "cuda")
+    check(run["device"].startswith("cuda") and run["pairs"] == n_pairs, run)
+    check(counts["dp_locate_word32"] == run["batches"] * run["device_aligners"] > 0, (counts, run))
+    # every planted pair is replaced: both trimmed mates keep at least the
+    # 40 bases of the shortest insert, more than the window
+    check(run["overwritten_pairs"] >= planted > 0, (run["overwritten_pairs"], planted))
+    cpu, runs = prefix_checks(make_argv, inputs, outs, work, "pe_overwrite")
+    card_prefix = runs["cuda"]["run"]["overwritten_pairs"]
+    cpu_prefix = runs["cpu"]["run"]["overwritten_pairs"]
+    check(card_prefix == cpu_prefix > 0, (card_prefix, cpu_prefix))
+    for path in inputs:
+        os.remove(path)
+    shutil.rmtree(folder, ignore_errors=True)
+    return dict(
+        argv="trim --aligner adapter -a TRUSEQ -A TRUSEQ2 -pe1 -pe2 -o -p -w 10,30,10",
+        pairs=n_pairs, make_input_seconds=made, seconds=seconds,
+        pairs_per_second=n_pairs / seconds, batches=run["batches"], launches=counts,
+        planted_low_windows=planted, overwritten_pairs=run["overwritten_pairs"],
+        overwritten_pairs_in_prefix=cpu_prefix, split_seconds=split_seconds(run),
+        cpu_check=cpu,
+    )
+
+
+# -- the dtype probe ---------------------------------------------------------------
+
+
+def phase_dtype_probe(seed, launches=20):
+    """Both probe kernels against the plain version on the card over both
+    shapes of the probe tool, the query byte moving and fixed, bytes 0-3
+    and 0-255 and 3 seeds (the whole final state compared, not only the
+    output); their times at the main path's shape and the plain version's;
+    then the probe tool itself on the card, its launches counted."""
+    began = time.perf_counter()
+    max_err = {kernel.name: 0 for kernel in dtype_probe.KERNELS}
+    compared = 0
+    for L, N in dtype_probe.SHAPES:
+        for symbols in (4, 256):
+            for rep in range(3):
+                reads = dtype_probe.make_reads([seed, 11, L, symbols, rep], L, N, symbols,
+                                               device=DEVICE)
+                for dyn in (True, False):
+                    out_e, state_e = dtype_probe.probe_columns(reads, torch.int32, dyn, state=True)
+                    for kernel in dtype_probe.KERNELS:
+                        out, state = kernel(reads, dyn, state=True)
+                        torch.cuda.synchronize()
+                        err = max(int((out - out_e).abs().max()),
+                                  int((state - state_e).abs().max()))
+                        max_err[kernel.name] = max(max_err[kernel.name], err)
+                        check(err == 0, "{} disagrees with its plain version at "
+                                        "L={} N={} dyn={}".format(kernel.name, L, N, dyn))
+                        compared += 1
+    timings = {}
+    props = torch.cuda.get_device_properties(0)
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    for kernel in dtype_probe.KERNELS:
+        per_shape = {}
+        for L, N in dtype_probe.SHAPES:
+            reads = dtype_probe.make_reads([seed, 12, L], L, N, 4, device=DEVICE)
+            for _ in range(3):
+                kernel(reads, True)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(launches):
+                start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = kernel(reads, True)
+                stop.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(stop))
+            plain_began = time.perf_counter()
+            expected = kernel.plain(reads, True)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - plain_began) * 1e3
+            check(torch.equal(out, expected), kernel.name + " disagrees at its timed shape")
+            cells = dtype_probe.cell_updates(L, N)
+            # an issued 32-bit operation updates one int32 cell, or two
+            # int16 cells
+            ops_ms = (
+                cells * dtype_probe.OPS_PER_CELL / kernel.reads_per_thread
+                / (props.multi_processor_count * INT_OPS_PER_SM_CLOCK * clock_hz) * 1e3
+            )
+            bytes_ms = (L * N + 4 * dtype_probe.OUT_ROWS * N) / HBM_BYTES_PER_SECOND * 1e3
+            per_shape[(L, N)] = dict(
+                ms=float(np.median(times)), plain_ms=plain_ms,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                library_ms=None,
+                shape=dict(L=L, N=N, M1=dtype_probe.M1, dyn=True),
+                cell_updates=cells, sm_count=props.multi_processor_count,
+                sm_clock_mhz=clock_hz / 1e6,
+            )
+        timings[kernel.name] = per_shape
+    # the probe tool on the card, its launches counted from 0
+    dtype_probe.reset_launch_counts()
+    tool = dtype_probe.main(["--seed", str(seed)], device="cuda")
+    tool_launches = dtype_probe.launch_counts()
+    for kernel in dtype_probe.KERNELS:
+        check(tool_launches[kernel.name] > 0, (kernel.name, tool_launches))
+    emit({
+        "dtype_probe": {
+            "compared": compared, "tolerance": 0, "seconds": time.perf_counter() - began,
+            "timings": {
+                name: {"L={},N={}".format(*shape): t for shape, t in per_shape.items()}
+                for name, per_shape in timings.items()
+            },
+            "tool": [
+                {key: r[key] for key in ("name", "L", "N", "ms", "reads_per_second",
+                                         "cell_updates_per_second")}
+                for r in tool
+            ],
+            "tool_launches": tool_launches,
+        }
+    })
+    main_shape = dtype_probe.SHAPES[1]
+    return max_err, tool_launches, {
+        name: per_shape[main_shape] for name, per_shape in timings.items()
+    }
 
 
 def pair_step_inputs(inputs, work, read_len):
@@ -1045,12 +1458,20 @@ def time_pair_step(pair, kernel, step_args, launches=20):
 
 # -- goldens ---------------------------------------------------------------------
 
+#: single-end cases: (parameters, golden, input, [(file written, golden)]);
+#: ``{work}`` is the phase's folder, ``{name}`` in a golden demultiplexes
 GOLDENS = [
-    ("-b TTAGACATATCTCCGTCG", "small.fastq", "small.fastq"),
-    ("-a VCCGAMCYUCKHRKDCUBBCNUWNSGHCGU", "illumina.fastq", "illumina.fastq.gz"),
-    ("-a TTAGACATAT -g GAGATTGCCA --no-indels", "no_indels.fasta", "no_indels.fasta"),
-    ("-a AATTTCAGGAATT -a GTTCTCTAGTTCT", "twoadapters.fasta", "twoadapters.fasta"),
-    ("-m 24 -O 10 -a AAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAA", "polya.fasta", "polya.fasta"),
+    ("-b TTAGACATATCTCCGTCG", "small.fastq", "small.fastq", []),
+    ("-a VCCGAMCYUCKHRKDCUBBCNUWNSGHCGU", "illumina.fastq", "illumina.fastq.gz", []),
+    ("-a TTAGACATAT -g GAGATTGCCA --no-indels", "no_indels.fasta", "no_indels.fasta", []),
+    ("-a AATTTCAGGAATT -a GTTCTCTAGTTCT", "twoadapters.fasta", "twoadapters.fasta", []),
+    ("-m 24 -O 10 -a AAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAA", "polya.fasta", "polya.fasta", []),
+    ("--info-file {work}/info.txt -a adapt=GCCGAACTTCTTAGACTGCCTTAAGGACGT",
+     "illumina.fastq", "illumina.fastq.gz", [("info.txt", "illumina.info.txt")]),
+    ("-a first=AATTTCAGGAATT -a second=GTTCTCTAGTTCT", "twoadapters.{name}.fasta",
+     "twoadapters.fasta",
+     [("golden_twoadapters.{}.fasta".format(name), "twoadapters.{}.fasta".format(name))
+      for name in ("first", "second", "unknown")]),
 ]
 
 
@@ -1066,11 +1487,14 @@ def phase_goldens(work):
     conformance = os.path.join(ROOT, "tests", "conformance")
     launches = 0
     runs = []  # (argv, [(written, golden)])
-    for params, expected, inpath in GOLDENS:
+    for params, expected, inpath, side in GOLDENS:
         out = os.path.join(work, "golden_" + expected)
-        runs.append((["trim"] + params.split() + [
+        compared = [(os.path.join(work, written), golden) for written, golden in side]
+        if "{name}" not in expected:
+            compared.append((out, expected))
+        runs.append((["trim"] + params.replace("{work}", work).split() + [
             "-se", os.path.join(conformance, "data", inpath), "-o", out,
-        ], [(out, expected)]))
+        ], compared))
     for i, (name, aligner, params, in1, in2, exp1, exp2) in enumerate(PORTED):
         case_dir = pathlib.Path(work) / "pe{}".format(i)
         case_dir.mkdir()
@@ -1159,8 +1583,10 @@ def main():
         u8_launches = pe["launches"]["diag_counts_u8"]
         u8_time = time_diag(diag_counts_u8, *u8_inputs)
         emit({"pe_adapter_path": phase_pe_adapter(work, inputs, PAIRS)})
+        emit({"pe_side_path": phase_pe_side(work, inputs, PAIRS)})
         for path in inputs:
             os.remove(path)
+        emit({"pe_overwrite_path": phase_pe_overwrite(work, args.seed, PAIRS)})
 
         # 2x300 pairs (MiSeq v3): the window exceeds 255, diag_counts_i32
         wide_pe, wide_inputs = phase_pe_insert(
@@ -1174,6 +1600,9 @@ def main():
         i32_time = time_diag(diag_counts_i32, *i32_inputs)
         for path in wide_inputs:
             os.remove(path)
+        emit({"se_side_path": phase_se_side(work, args.seed, SIDE_READS)})
+        probe_err, probe_launches, probe_times = phase_dtype_probe(args.seed)
+        max_err.update(probe_err)
         phase_goldens(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1185,6 +1614,10 @@ def main():
         (dp_locate_wide, "atropos_tpu_torch/csrc/dp_align.cu", wide_launches, wide_time),
         (diag_counts_u8, "atropos_tpu_torch/csrc/diag_counts.cu", u8_launches, u8_time),
         (diag_counts_i32, "atropos_tpu_torch/csrc/diag_counts.cu", i32_launches, i32_time),
+    ) + tuple(
+        (kernel, "atropos_tpu_torch/csrc/dtype_probe.cu", probe_launches[kernel.name],
+         probe_times[kernel.name])
+        for kernel in dtype_probe.KERNELS
     ):
         if launches <= 0:
             raise AssertionError(kernel.name + " was not launched on its path")

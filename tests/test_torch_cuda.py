@@ -273,3 +273,112 @@ def test_trim_on_the_card_equals_trim_on_the_cpu(card, tmp_path):
         with open(out, "rb") as handle:
             outs[device] = handle.read()
     assert outs["cuda"] == outs["cpu"] and outs["cuda"]
+
+
+@pytest.mark.parametrize("L,N", [(104, 16384), (40, 34), (160, 2)])
+@pytest.mark.parametrize("symbols", [4, 256])
+def test_dtype_probe_kernels_equal_plain_version(card, L, N, symbols):
+    import torch
+
+    from atropos_tpu_torch.tools import dtype_probe
+
+    reads = dtype_probe.make_reads(L * N + symbols, L, N, symbols, device=card)
+    for kernel in dtype_probe.KERNELS:
+        for dyn in (True, False):
+            before = kernel.launches
+            got = kernel(reads, dyn)
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 1
+            expected = kernel.plain(reads, dyn)
+            assert kernel.launches == before + 1, "the plain version launches nothing"
+            assert torch.equal(got, expected)
+            assert torch.equal(got, dtype_probe.probe_columns(reads, torch.int32, dyn))
+            out, state = kernel(reads, dyn, state=True)
+            torch.cuda.synchronize()
+            assert torch.equal(out, expected)
+            assert torch.equal(state, kernel.plain(reads, dyn, state=True)[1])
+
+
+def test_dtype_probe_wrappers_raise_instead_of_falling_back(card):
+    import torch
+
+    from atropos_tpu_torch.tools import dtype_probe
+
+    reads = torch.zeros((104, 33), dtype=torch.uint8, device=card)
+    before = dtype_probe.launch_counts()
+    with pytest.raises(ValueError):  # two reads a thread: N must be even
+        dtype_probe.dtype_probe_i16x2(reads, True)
+    with pytest.raises(TypeError):
+        dtype_probe.dtype_probe_i32(reads.int(), True)
+    with pytest.raises(ValueError):  # fewer columns than m
+        dtype_probe.dtype_probe_i32(reads[:20].contiguous(), True)
+    assert dtype_probe.launch_counts() == before
+
+
+def test_dtype_probe_tool_on_the_card(card):
+    from atropos_tpu_torch.tools import dtype_probe
+
+    dtype_probe.reset_launch_counts()
+    results = dtype_probe.main(["--shape", "104,2048", "--launches", "2"], device="cuda")
+    assert len(results) == 4 and all(r["ms"] > 0 for r in results)
+    assert all(r["device"] != "cpu (plain version)" for r in results)
+    counts = dtype_probe.launch_counts()
+    assert counts["dtype_probe_i32"] > 0 and counts["dtype_probe_i16x2"] > 0
+
+
+def test_side_files_stats_and_demultiplexing_on_the_card(card, tmp_path):
+    """Demultiplexed output, info, rest and wildcard files and ``--stats
+    both`` on the card equal the same run on the CPU; the statistics'
+    position counts ran on the card."""
+    from atropos_tpu_torch.__main__ import main
+    from atropos_tpu_torch.commands import stats
+
+    data = os.path.join(
+        os.path.dirname(__file__), "conformance", "data", "illumina.fastq.gz"
+    )
+    outs = {}
+    for device in ("cuda", "cpu"):
+        folder = tmp_path / device
+        folder.mkdir()
+        before = dict(stats.DEVICE_STATS_COUNTS)
+        rc = main(
+            ["trim", "-a", "adapt=GCCGAACTTCTTAGACTGCCTTAAGGACGT",
+             "-a", "wild=ACGTNNNACGT", "-q", "10", "--stats", "both",
+             "--info-file", str(folder / "info.txt"), "-r", str(folder / "rest.txt"),
+             "--wildcard-file", str(folder / "wc.txt"),
+             "-se", data, "-o", str(folder / "out.{name}.fastq"), "--quiet",
+             "--no-cache-adapters", "--report-file", str(folder / "report.txt")],
+            device=device,
+        )
+        assert rc == 0
+        assert stats.DEVICE_STATS_COUNTS[device] > before[device]
+        outs[device] = {}
+        for name in sorted(os.listdir(str(folder))):
+            with open(str(folder / name), "rb") as handle:
+                data_bytes = handle.read()
+            if name == "report.txt":  # its command line and times differ
+                data_bytes = data_bytes[data_bytes.index(b"--------\nTrimming"):]
+            outs[device][name] = data_bytes
+    assert outs["cuda"] == outs["cpu"]
+    assert "out.adapt.fastq" in outs["cuda"] and outs["cuda"]["info.txt"]
+
+
+def test_overwrite_on_the_card_equals_the_golden(card, tmp_path):
+    from atropos_tpu_torch.__main__ import main
+
+    conformance = os.path.join(os.path.dirname(__file__), "conformance")
+    outs = [str(tmp_path / "o.{}.fastq".format(i)) for i in (1, 2)]
+    rc = main(
+        ["trim", "-w", "10,30,10",
+         "-pe1", os.path.join(conformance, "data", "lowq.fastq"),
+         "-pe2", os.path.join(conformance, "data", "highq.fastq"),
+         "-o", outs[0], "-p", outs[1], "--quiet", "--no-cache-adapters",
+         "--report-file", str(tmp_path / "report.txt")],
+        device="cuda",
+    )
+    assert rc == 0
+    for out, golden in zip(outs, ("lowq.fastq", "highq.fastq")):
+        with open(out, "rb") as got, open(
+            os.path.join(conformance, "expected", golden), "rb"
+        ) as want:
+            assert got.read() == want.read()

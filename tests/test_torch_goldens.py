@@ -3,11 +3,12 @@
 Every single-end case of ``tests/test_trim_se.py`` is listed here with its
 command line. The cases the JAX package runs through its turbo runner and
 that lie in the ported slice go through ``atropos_tpu_torch`` on ``cpu``
-and must reproduce ``tests/conformance/expected/`` byte for byte; the
-others (side files, demultiplexing, colorspace, and what the turbo runner
-hands to the batched engine or the scalar pipeline) must raise
-``NotPortedError`` naming their ROADMAP.md queue item, before any output
-is written.
+and must reproduce ``tests/conformance/expected/`` byte for byte, with
+their side files (rest, info and wildcard files, the demultiplexed
+outputs) as the upstream tests check them; the others (colorspace, and
+what the turbo runner hands to the batched engine or the scalar pipeline)
+must raise ``NotPortedError`` naming their ROADMAP.md queue item, before
+any output is written.
 """
 import os
 
@@ -105,8 +106,6 @@ CASES = [
 
 #: cases outside the slice -> the topic of the ROADMAP.md item they wait for
 NOT_PORTED = {
-    "rest": "side-files",
-    "restfront": "side-files",
     "minimum_length": "engine",
     "too_short": "engine",
     "too_short_no_primer": "engine",
@@ -115,21 +114,30 @@ NOT_PORTED = {
     "length_tag": "engine",
     "mask_adapter": "engine",
     "suffix": "engine",
-    "adapter_wildcard_a": "side-files",
-    "adapter_wildcard_b": "side-files",
-    "anywhere_wildcard_file": "side-files",
     "strip_suffix": "engine",
-    "info_file": "side-files",
-    "info_file_times": "side-files",
-    "info_file_fasta": "side-files",
+    "info_file_times": "engine",
     "no_trim": "engine",
     "linked": "engine",
-    "demultiplex": "side-files",
 }
 
-#: second output files of the ported cases: option value -> golden file
+#: further output files of the ported cases: (file written, golden file);
+#: a golden of ``tests/conformance/data`` is named with its directory
 SIDE_OUTPUTS = {
-    "untrimmed_output": ("untrimmed.tmp.fastq", "small.untrimmed.fastq"),
+    "untrimmed_output": (("untrimmed.tmp.fastq", "small.untrimmed.fastq"),),
+    "rest": (("rest.tmp", "../data/rest.txt"),),
+    "restfront": (("rest.tmp", "../data/restfront.txt"),),
+    "info_file": (("info.txt", "illumina.info.txt"),),
+    "demultiplex": tuple(
+        ("twoadapters.{}.fasta".format(name), "twoadapters.{}.fasta".format(name))
+        for name in ("first", "second", "unknown")
+    ),
+}
+
+#: wildcard files of the ported cases: their lines, as the upstream test
+#: (``tests/test_trim_se.py::test_adapter_wildcard``) checks them
+WILDCARD_LINES = {
+    "adapter_wildcard_a": ["AAA 1", "GGG 2", "CCC 3b", "TTT 4b"],
+    "adapter_wildcard_b": ["AAA 1", "GGG 2", "CCC 3b", "TTT 4b"],
 }
 
 PORTED = [case for case in CASES if case[0] not in NOT_PORTED]
@@ -149,7 +157,7 @@ def test_case_table_is_complete():
     assert len(CASES) == len({case[0] for case in CASES}) == 79
     assert set(NOT_PORTED) <= {case[0] for case in CASES}
     assert set(NOT_PORTED.values()) <= set(ROADMAP_ITEMS)
-    assert len(PORTED) == 59
+    assert len(PORTED) == 67
 
 
 @pytest.mark.parametrize(
@@ -161,10 +169,14 @@ def test_golden(name, params, expected, inpath, tmp_path):
     assert "exception" not in summary, summary.get("exception")
     assert retcode == 0
     assert summary["mode"] == "turbo" and summary["device"] == "cpu"
-    assert_files_equal(cutpath(expected), out)
-    if name in SIDE_OUTPUTS:
-        written, golden = SIDE_OUTPUTS[name]
+    if name not in SIDE_OUTPUTS or "{name}" not in expected:
+        assert_files_equal(cutpath(expected), out)
+    for written, golden in SIDE_OUTPUTS.get(name, ()):
         assert_files_equal(cutpath(golden), str(tmp_path / written))
+    if name in WILDCARD_LINES:
+        with open(str(tmp_path / "wc.txt")) as wct:
+            lines = [line.strip() for line in wct.readlines()]
+        assert lines == WILDCARD_LINES[name]
     assert os.path.exists(str(tmp_path / "report.txt"))
 
 

@@ -4,8 +4,8 @@ Every case of ``tests/test_trim_pe.py`` is listed here with its command
 line and the aligners the reference runs it with. The cases the JAX
 package runs through its turbo paired runner go through
 ``atropos_tpu_torch`` on ``cpu`` and must reproduce
-``tests/conformance/expected/`` byte for byte; the others (``-w``, what
-the turbo runner hands to the scalar pipeline, ``--threads``) must raise
+``tests/conformance/expected/`` byte for byte; the others (what the
+turbo runner hands to the scalar pipeline, ``--threads``) must raise
 ``NotPortedError`` naming their ROADMAP.md queue item, before any output
 is written.
 
@@ -114,7 +114,6 @@ CASES = [
 #: cases outside the slice -> the topic of the ROADMAP.md item they wait for
 NOT_PORTED = {
     "mask_adapter": "engine",
-    "overwrite": "side-files",
     "no_writer_process": "multi-gpu",
     "summary_threads": "multi-gpu",
     "issue122_empty_gz_outputs": "multi-gpu",
@@ -169,7 +168,7 @@ def test_case_table_is_complete():
     assert len({case[0] for case in CASES}) == len(CASES) == 23
     assert set(NOT_PORTED) <= {case[0] for case in CASES}
     assert set(NOT_PORTED.values()) <= set(ROADMAP_ITEMS)
-    assert len(PORTED) == 26
+    assert len(PORTED) == 27
 
 
 @pytest.mark.parametrize(

@@ -72,8 +72,11 @@ def test_sources_exist():
         "atropos_tpu_torch/align/insert_kernel.py",
         "atropos_tpu_torch/align/batched.py",
         "atropos_tpu_torch/commands/trim/modifiers/paired.py",
+        "atropos_tpu_torch/commands/stats.py",
         "atropos_tpu_torch/csrc/dp_align.cu",
         "atropos_tpu_torch/csrc/diag_counts.cu",
+        "atropos_tpu_torch/csrc/dtype_probe.cu",
+        "atropos_tpu_torch/tools/dtype_probe.py",
         "atropos_tpu_torch/engine/turbo.py",
         "atropos_tpu_torch/runtime/fastq.cpp",
     ):
@@ -112,7 +115,8 @@ def test_no_environment_switch():
 LAUNCHING = {
     "_lib", "build", "load", "_step", "_dispatch", "_core", "_planes", "submit",
     "kernel", "aligner", "dp_locate_word32", "dp_locate_wide", "diag_counts_u8",
-    "diag_counts_i32", "kernel_for",
+    "diag_counts_i32", "kernel_for", "dtype_probe_i32", "dtype_probe_i16x2",
+    "position_byte_counts", "add_batch", "collect_matrices",
 }
 
 
@@ -128,7 +132,13 @@ def _called_names(node):
 
 @pytest.mark.parametrize(
     "path",
-    [p for p in _sources() if p.endswith(".py") and ("/align/" in p or "/engine/" in p)],
+    [
+        p for p in _sources()
+        if p.endswith(".py") and (
+            "/align/" in p or "/engine/" in p or "/tools/" in p
+            or p.endswith("/commands/stats.py")
+        )
+    ],
     ids=lambda p: os.path.relpath(p, ROOT),
 )
 def test_no_except_around_a_build_or_a_launch(path):
@@ -190,6 +200,58 @@ sys.exit(rc)
     )
     assert done.returncode == 0, done.stderr
     for out, golden in zip(outs, ("paired_insert.1.fastq", "paired_insert.2.fastq")):
+        with open(out) as got, open(cutpath(golden)) as expected:
+            assert got.read() == expected.read()
+
+
+def test_side_files_stats_and_probe_run_with_jax_and_the_reference_package_blocked(
+        tmp_path):
+    """Demultiplexed output with info and rest files and ``--stats both``,
+    a paired ``-w`` trim, and the dtype probe tool, on ``cpu``."""
+    mux = str(tmp_path / "mux.{name}.fasta")
+    outs = [str(tmp_path / "ow.{}.fastq".format(i)) for i in (1, 2)]
+    done = _run(
+        r'''
+from atropos_tpu_torch.__main__ import main
+from atropos_tpu_torch.commands import stats
+from atropos_tpu_torch.tools import dtype_probe
+args = sys.argv[1:]
+tail = ["--quiet", "--adapter-cache-file", args[6], "--report-file", args[7]]
+rc = main(
+    ["trim", "-a", "first=AATTTCAGGAATT", "-a", "second=GTTCTCTAGTTCT",
+     "-se", args[0], "-o", args[1], "--info-file", args[1] + ".info",
+     "-r", args[1] + ".rest"] + tail,
+    device="cpu",
+)
+rc |= main(
+    ["trim", "--stats", "both", "-a", "TTAGACATAT", "-se", args[2],
+     "-o", args[1] + ".stats.fastq"] + tail,
+    device="cpu",
+)
+assert stats.DEVICE_STATS_COUNTS["cpu"] > 0 and stats.DEVICE_STATS_COUNTS["cuda"] == 0
+rc |= main(
+    ["trim", "-w", "10,30,10", "-pe1", args[3], "-pe2", args[4],
+     "-o", args[5], "-p", args[5].replace(".1.", ".2.")] + tail,
+    device="cpu",
+)
+results = dtype_probe.main(["--device", "cpu", "--shape", "40,8"])
+assert len(results) == 4 and dtype_probe.launch_counts() == {
+    "dtype_probe_i32": 0, "dtype_probe_i16x2": 0}
+loaded = sorted(n for n in sys.modules if n.split(".")[0] in Refuse.BLOCKED)
+assert not loaded, loaded
+sys.exit(rc)
+''',
+        datapath("twoadapters.fasta"), mux, datapath("small.fastq"),
+        datapath("lowq.fastq"), datapath("highq.fastq"), outs[0],
+        str(tmp_path / ".adapters"), str(tmp_path / "report.txt"),
+    )
+    assert done.returncode == 0, done.stderr
+    for name in ("first", "second", "unknown"):
+        with open(mux.format(name=name)) as got, open(
+            cutpath("twoadapters.{}.fasta".format(name))
+        ) as expected:
+            assert got.read() == expected.read()
+    for out, golden in zip(outs, ("lowq.fastq", "highq.fastq")):
         with open(out) as got, open(cutpath(golden)) as expected:
             assert got.read() == expected.read()
 
@@ -289,9 +351,9 @@ def test_other_commands_are_not_ported(command):
     (["-pe1", "paired.1.fastq", "-pe2", "paired.2.fastq", "-A", "ACGT",
       "--bisulfite", "swift"], "engine"),
     (["-pe1", "paired.1.fastq", "-pe2", "paired.2.fastq", "-A", "ACGT",
-      "-w", "10,30,10"], "side-files"),
+      "--aligner", "insert", "-w", "10,30,10"], "engine"),
     (["-se", "small.fastq", "--threads", "2"], "multi-gpu"),
-    (["-se", "small.fastq", "--stats", "both"], "side-files"),
+    (["-se", "small.fastq", "--stats", "both:tiles"], "engine"),
     (["-se", "small.fastq", "--times", "2"], "engine"),
     (["-se", "small.fastq", "--op-order", "ACGQW"], "engine"),
 ])

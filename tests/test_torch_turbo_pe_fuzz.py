@@ -3,7 +3,8 @@
 byte-identical outputs and equal summaries. The draws cover both
 aligners, legacy mode, indel costs 1 to 3, error rates,
 ``--adapter-max-rmp``, ``--insert-match-error-rate``, cuts, quality and N
-trimming, length filters, pair filters, two files or interleaved input and
+trimming, length filters, pair filters, ``--stats``, info files, ``-w``
+mate overwrite (adapter aligner), two files or interleaved input and
 output, gz, lowercase, more than 14 symbols, windows above 255 and
 near-poly-A pairs.
 
@@ -47,6 +48,15 @@ def random_pe_config(rng):
         parts += ["--pair-filter", ("any", "both")[int(rng.integers(2))]]
     if rng.random() < 0.2:
         parts += ["--discard-untrimmed"]
+    # -w runs without --stats and side files (the turbo runner declines
+    # those together), and only with the adapter aligner
+    if aligner == "adapter" and rng.random() < 0.3:
+        window = int(rng.integers(5, 15))
+        parts += ["-w", "{},{},{}".format(int(rng.integers(5, 15)), int(rng.integers(20, 35)), window)]
+        if rng.random() < 0.3:
+            parts += ["--op-order", "WCGQA"]
+    elif rng.random() < 0.3:
+        parts += ["--stats", ("pre", "post", "both")[int(rng.integers(3))]]
     return parts
 
 
@@ -66,5 +76,8 @@ def test_fuzz_paired(tmp_path, seed):
     gz = rng.random() < 0.3 and read_len <= 120
     inputs = write_pairs(tmp_path, pairs, gz=gz, interleaved=layout == 2)
     io, outs = io_argv(inputs, tmp_path, interleaved_out=layout == 1)
+    if "-w" not in parts and rng.random() < 0.3:
+        outs.append(str(tmp_path / "info.txt"))
+        io += ["--info-file", outs[-1]]
     argv = parts + io
     assert_same(run_both(argv + tail(tmp_path), outs), "seed {}: {}".format(seed, argv))

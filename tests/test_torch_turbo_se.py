@@ -305,6 +305,10 @@ def random_config(rng):
     if n_adapters:
         if rng.random() < 0.3:
             parts += ["--no-indels"]
+        elif rng.random() < 0.4:
+            parts += ["--indel-cost", ("2", "3")[int(rng.integers(2))]]
+        if rng.random() < 0.3:
+            parts += ["--adapter-max-rmp", ("0.001", "1e-5")[int(rng.integers(2))]]
         if rng.random() < 0.5:
             parts += ["-e", ("0.05", "0.1", "0.2")[int(rng.integers(3))]]
         if rng.random() < 0.5:
@@ -340,6 +344,26 @@ def random_config(rng):
     return parts, quality or nextseq
 
 
+def random_side_outputs(rng, parts, tmp_path, out_fmt, qualities):
+    """Draws of the side outputs: info, rest and wildcard files, ``{name}``
+    demultiplexing and ``--stats pre|post|both`` (on inputs with
+    qualities). Returns (argv, output paths, demultiplexed or not)."""
+    argv, outs = [], []
+    adapters = any(p in parts for p in ("-a", "-g", "-b"))
+    for option, name in (("--info-file", "info.txt"), ("-r", "rest.txt"),
+                         ("--wildcard-file", "wc.txt")):
+        if adapters and rng.random() < 0.25:
+            outs.append(str(tmp_path / name))
+            argv += [option, outs[-1]]
+    if qualities and rng.random() < 0.25:
+        argv += ["--stats", ("pre", "post", "both")[int(rng.integers(3))]]
+    demux = adapters and "--discard-trimmed" not in parts and rng.random() < 0.2
+    if demux:
+        names = [p.split("=")[0] for p in parts if "=" in p] + ["unknown"]
+        outs += [str(tmp_path / "mux.{}.{}".format(n, out_fmt)) for n in names]
+    return argv, outs, demux
+
+
 @pytest.mark.parametrize("seed", range(24))
 def test_fuzz_single_end(tmp_path, seed):
     rng = seeded("fuzz-se", seed)
@@ -354,9 +378,12 @@ def test_fuzz_single_end(tmp_path, seed):
     )
     inp = write_reads(str(tmp_path / in_name), records, in_fmt)
     out_fmt = "fasta" if in_fmt == "fasta" or rng.random() < 0.2 else "fastq"
-    out = str(tmp_path / ("out." + out_fmt))
-    outs = [out]
-    argv = parts + ["-se", inp, "-o", out]
+    side_argv, side_outs, demux = random_side_outputs(
+        rng, parts, tmp_path, out_fmt, in_fmt == "fastq"
+    )
+    out = str(tmp_path / (("mux.{name}." if demux else "out.") + out_fmt))
+    outs = side_outs if demux else [out] + side_outs
+    argv = parts + side_argv + ["-se", inp, "-o", out]
     if "-m" in parts and rng.random() < 0.5:
         outs.append(str(tmp_path / ("short." + out_fmt)))
         argv += ["--too-short-output", outs[-1]]
