@@ -130,10 +130,13 @@ def _locate_kernel(
     (found, start1, stop1, start2, stop2, matches, cost, 0), equal per
     read to ``oracle.Aligner.locate``.
 
-    With ``count_cells`` it also returns the number of cell updates the
+    With ``count_cells`` it also returns two counts: the cell updates the
     column-sequential algorithm needs on these reads (the sum of ``last``
-    over every read's active columns): the work a kernel that walks only
-    the band has to do.
+    over every read's active columns), the work a kernel that walks only
+    the band has to do; and the warp-level row slots (over each warp of 32
+    neighbouring reads and each column, 32 times the largest ``last`` of
+    its active reads), the lanes a kernel that runs a warp's rows in step
+    occupies.
     """
     L, B = reads_T.shape
     dev = reads_T.device
@@ -177,6 +180,8 @@ def _locate_kernel(
     b_origin = torch.zeros(B, dtype=i64, device=dev)
     b_matches = torch.zeros(B, dtype=i64, device=dev)
     cells = torch.zeros((), dtype=i64, device=dev)
+    row_slots = torch.zeros((), dtype=i64, device=dev)
+    warps = -(-B // 32)
 
     ref64 = ref.to(i64)[None, :]  # [1, m]
     thr64 = thresholds.to(i64)
@@ -240,7 +245,11 @@ def _locate_kernel(
         origin = torch.where(write, org, origin)
         matches = torch.where(write, mat, matches)
         if count_cells:
-            cells = cells + (last * active).sum()
+            band_rows = last * active
+            cells = cells + band_rows.sum()
+            warp_rows = band_rows.new_zeros(warps * 32)
+            warp_rows[:B] = band_rows
+            row_slots = row_slots + 32 * warp_rows.view(warps, 32).amax(dim=1).sum()
 
         # band update (reference ``_align.pyx:433-439``)
         in_band = in_rows & (cost <= k)
@@ -315,7 +324,7 @@ def _locate_kernel(
         ]
     ).to(torch.int32)
     if count_cells:
-        return out, cells
+        return out, cells, row_slots
     return out
 
 

@@ -12,7 +12,10 @@ wrapper                replaces                                    cell word
 ``dp_locate_wide``     ``pallas_kernel.py::_dp_kernel``            64 bits
 =====================  ==========================================  =========
 
-Each wrapper checks its arguments, allocates the ``[8, B]`` output (and,
+Each wrapper picks the kernel's instantiation from the shape
+(:meth:`_DpKernel.instantiation`: for ``dp_locate_word32`` the cell column
+in registers for adapters of up to 63 bases, else in shared memory, else in
+global memory), checks its arguments, allocates the ``[8, B]`` output (and,
 for an adapter whose cell column does not fit shared memory, the
 ``[m + 1, B]`` global-memory column the kernel then works in),
 launches its kernel on PyTorch's current stream without synchronizing,
@@ -26,6 +29,7 @@ _locate_kernel`); on CUDA tensors it launches the kernel or raises.
 parameters on its device and picks the wrapper: the 32-bit word where the
 cell's fields fit it, the 64-bit word otherwise.
 """
+import collections
 import ctypes
 
 import torch
@@ -33,18 +37,37 @@ import torch
 from atropos_tpu_torch.align import _build
 from atropos_tpu_torch.align.batched import BatchAligner, _locate_kernel
 
-#: integer operations of one cell update (one iteration of the row loop of
-#: ``dp_body`` in csrc/dp_align.cu, counted in the note at its top)
+#: integer operations of one cell update of ``dp_body`` in csrc/dp_align.cu
+#: (one iteration of its row loop, counted in the note at the file's top):
+#: the shared- and global-memory instantiations. The register
+#: instantiations' count is read from the built kernel's SASS
+#: (``cuda_tools/sass_rows.py``)
 OPS_PER_CELL = 24
+
+#: row caps of ``dp_locate_word32``'s register instantiations: an adapter of
+#: m bases takes the smallest cap of at least m + 1 rows. One 64-row
+#: instantiation for all of them ran 1.4 % slower at the main path's shape
+#: and up to 37 % slower where the 16-row one serves (PERF.md)
+ROW_CAPS = (16, 32, 48, 64)
+
+#: threads of a block of the register instantiations: of 32, 64 and 128,
+#: 128 was fastest at the main path's shape (PERF.md)
+REGISTER_THREADS = 128
 
 #: dynamic shared memory a block may have on sm_90
 MAX_SHARED_BYTES = 232448
 
-#: threads of a block: 64 gives a batch of 32768 reads 512 blocks to spread
-#: over the card's 132 SMs; halved (down to one warp) for adapters whose
-#: cell column does not fit the shared memory of a wider block, and 64
-#: again once even one warp's columns do not fit and move to global memory
+#: threads of a block of ``dp_body``: 64 gives a batch of 32768 reads 512
+#: blocks to spread over the card's 132 SMs; halved (down to one warp) for
+#: adapters whose cell column does not fit the shared memory of a wider
+#: block, and 64 again once even one warp's columns do not fit and move to
+#: global memory
 THREADS_PER_BLOCK = 64
+
+#: how a launch runs: ``kind`` "registers", "shared" or "global" (where the
+#: cell column lives), ``row_cap`` (rows of a register column, else 0) and
+#: ``threads`` a block
+Instantiation = collections.namedtuple("Instantiation", "kind row_cap threads")
 
 _LIB_NAME = "dp_align"
 
@@ -75,12 +98,12 @@ def cell_layout(m, k, L, word_bits):
 def _lib():
     lib = _build.load(_LIB_NAME)
     if not getattr(lib, "_atropos_bound", False):
-        argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-        )
-        for name in ("dp_locate_word32", "dp_locate_wide"):
+        # dp_locate_word32 takes the row cap of its register column too
+        for name, ints in (("dp_locate_word32", 13), ("dp_locate_wide", 12)):
             fn = getattr(lib, name)
-            fn.argtypes = argtypes
+            fn.argtypes = (
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * ints + [ctypes.c_void_p]
+            )
             fn.restype = ctypes.c_int
         lib._atropos_bound = True
     return lib
@@ -119,10 +142,11 @@ def _check_inputs(reads_T, lengths_row, ref_bytes, thresholds, m):
 class _DpKernel:
     """Wrapper of one exported DP kernel (see the module docstring)."""
 
-    def __init__(self, name, word_bits, replaces):
+    def __init__(self, name, word_bits, replaces, row_caps=()):
         self.name = name
         self.word_bits = word_bits
         self.replaces = replaces
+        self.row_caps = row_caps
         #: kernel launches made through this wrapper
         self.launches = 0
 
@@ -144,6 +168,19 @@ class _DpKernel:
         if self.shared_bytes(m, threads) > MAX_SHARED_BYTES:
             return THREADS_PER_BLOCK, True
         return threads, False
+
+    def instantiation(self, m, k, L):
+        """The :data:`Instantiation` that serves (m, k, L): the register
+        column of the smallest row cap that holds m + 1 rows, where the
+        cell's fields leave three bits to spare (the register body's 2-bit
+        tie key and one bit for costs of up to 2k + 2 before its minimum);
+        else :meth:`block_layout`'s shared- or global-memory column."""
+        if cell_layout(m, k, L, self.word_bits - 3) is not None:
+            for cap in self.row_caps:
+                if m + 1 <= cap:
+                    return Instantiation("registers", cap, REGISTER_THREADS)
+        threads, global_col = self.block_layout(m)
+        return Instantiation("global" if global_col else "shared", 0, threads)
 
     def plain(self, reads_T, lengths_row, ref_bytes, thresholds, **params):
         """The plain PyTorch version of this kernel, on any device."""
@@ -174,6 +211,18 @@ class _DpKernel:
             return self.plain(
                 reads_T, lengths_row, ref_bytes, thresholds, **params
             )
+        how = self.instantiation(m, k, reads_T.shape[0])
+        return self.launch(
+            reads_T, lengths_row, ref_bytes, thresholds, how, **params
+        )
+
+    def launch(self, reads_T, lengths_row, ref_bytes, thresholds, how, *, m,
+               k, flags, min_overlap, ins_cost, del_cost, compare_ascii):
+        """Launch the :data:`Instantiation` ``how`` on CUDA tensors: what a
+        call does once it has picked ``how`` from the shape. A timing tool
+        may name another instantiation that holds the shape (a wider row
+        cap, another block width); the wrapper or the kernel refuses one
+        that does not."""
         L, B = _check_inputs(reads_T, lengths_row, ref_bytes, thresholds, m)
         if B % 32:
             raise ValueError(
@@ -186,24 +235,30 @@ class _DpKernel:
                     self.name, m, k, L, self.word_bits
                 )
             )
-        threads, global_col = self.block_layout(m)
+        if how.kind == "registers" and cell_layout(m, k, L, self.word_bits - 3) is None:
+            raise ValueError(
+                "{}: the cell of (m={}, k={}, L={}) leaves no three bits to "
+                "spare for the register column".format(self.name, m, k, L)
+            )
         out = torch.empty((8, B), dtype=torch.int32, device=reads_T.device)
         col = None
-        if global_col:
+        if how.kind == "global":
             col = torch.empty(
                 ((m + 1) * B,),
                 dtype=torch.int32 if self.word_bits == 32 else torch.int64,
                 device=reads_T.device,
             )
+        ints = [L, B, m, k, flags, min_overlap, ins_cost, del_cost,
+                int(bool(compare_ascii)), layout[0], layout[1]]
+        if self.row_caps:
+            ints.append(how.row_cap)
         with torch.cuda.device(reads_T.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = getattr(_lib(), self.name)(
                 reads_T.data_ptr(), lengths_row.data_ptr(), out.data_ptr(),
                 ref_bytes.data_ptr(), thresholds.data_ptr(),
                 None if col is None else col.data_ptr(),
-                L, B, m, k, flags, min_overlap, ins_cost, del_cost,
-                int(bool(compare_ascii)), layout[0], layout[1], threads,
-                stream,
+                *ints, how.threads, stream,
             )
         if rc != 0:
             raise RuntimeError(
@@ -216,6 +271,7 @@ class _DpKernel:
 dp_locate_word32 = _DpKernel(
     "dp_locate_word32", 32,
     "atropos_tpu/align/pallas_kernel.py:177 (_dp_kernel_fused)",
+    row_caps=ROW_CAPS,
 )
 dp_locate_wide = _DpKernel(
     "dp_locate_wide", 64,

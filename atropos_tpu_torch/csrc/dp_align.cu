@@ -12,16 +12,27 @@
 // Both compute, for every read of a [L, B] column-major uint8 batch, the
 // result of oracle.Aligner.locate for one adapter of m bases: the 7 rows
 // found, start1, stop1, start2, stop2, matches, cost (+ a zero row) of an
-// [8, B] int32 output. They are two instantiations of one device function
-// that differ only in the cell word, and each is launched, counted and
-// checked on its own.
+// [8, B] int32 output. m, k, the flags, the costs, the adapter bytes and
+// the threshold table are run-time arguments, so one build serves every
+// adapter.
 //
-// What bounds them on this card: integer ALU work. A batch needs up to
-// B * L * (m + 1) cell updates of OPS_PER_CELL (24, counted below) integer
-// operations each, while the bytes - L * B in, 32 * B out - are three
-// orders of magnitude below what the memory system moves in that time.
+// Three device functions compute that result; the wrapper
+// (align/cuda_kernel.py::_DpKernel.instantiation) picks one from the shape
+// alone, and each gives the same result:
 //
-// What the design does about it:
+//   dp_body_reg<R>         dp_locate_word32 for adapters of m + 1 <= R
+//                          rows, R = 16, 32, 48 or 64, whose word leaves
+//                          three bits to spare above the fields: the cell
+//                          column in registers. The main path's kernel
+//                          (TruSeq, 34 rows: R = 48).
+//   dp_body<Word, false>   the column in shared memory: dp_locate_wide,
+//                          and dp_locate_word32 for longer adapters.
+//   dp_body<Word, true>    the column in global memory, for adapters whose
+//                          column does not fit shared memory even for one
+//                          warp (m above about 1,800 in the 32-bit word,
+//                          900 in the 64-bit one).
+//
+// What is common to all three:
 //   * The TPU kernels update all m + 1 rows of a column as one vector and
 //     mask the write-back to the Ukkonen band; they resolve the insertion
 //     chain by d_max relaxation passes and ties by a sub-key field. A CUDA
@@ -32,36 +43,67 @@
 //     relaxation blocker are not needed; the results are the same.
 //   * The cell keeps the packed word of _fused_layout (cost | origin + m |
 //     matches, costs saturated at k + 1, which no observable result can
-//     tell from the true cost) because the column lives in shared memory:
-//     m + 1 cells a thread, laid out [row][thread] so that a warp's 32
-//     threads hit 32 different banks. m, k, the flags, the costs, the
-//     adapter bytes and the threshold table are run-time arguments, so one
-//     build serves every adapter.
-//   * An adapter whose column does not fit shared memory even for one
-//     warp (m + 1 words a thread times 32 threads above 232,448 bytes:
-//     m > about 1,800 for the 32-bit word, 900 for the 64-bit one) keeps
-//     its column in global memory instead, in a scratch buffer of
-//     [m + 1, B] words that the wrapper allocates, laid out [row][read] so
-//     that a warp's 32 accesses to one row are one coalesced transaction;
-//     the adapter bytes and thresholds are then read from global memory
-//     too. Each exported kernel so has two instantiations of the same
-//     device function, picked by the entry point: the results are the
-//     same, only where the column lives differs.
+//     tell from the true cost). Cells above the band keep their stale
+//     values, which the oracle can observe later.
 //   * Reads arrive [L, B] uint8: in column j a warp loads 32 neighbouring
 //     bytes. A warp leaves the column loop as soon as all its reads are
-//     past their last column or have found an exact match.
+//     past their last column or have found an exact match (__all_sync), so
+//     B is a multiple of 32.
+//   * Thresholds floor(err * len) come in as an int32 table computed on the
+//     host in float64; the kernels look it up and never multiply a float.
 //
-// OPS_PER_CELL, one inner-loop iteration of dp_body: shared-memory address
-// (1), load old cell, load adapter byte, compare (2), three cost extracts
-// (3), three candidate costs (3), two compares and the and (3), three
-// selects of the cost and three of the payload (6), clamp (1), repack (2),
-// band test and select (2), loop counter (1) = 24.
+// What bounds dp_body_reg on this card: integer instructions, issued by
+// too few warps. The bytes (L * B in, 32 * B out) are three orders of
+// magnitude below what the memory moves in the kernel's time. A row of the
+// column loop takes about 11 instructions of the cell rule and its
+// bookkeeping, and ptxas adds about 5 register moves (both counted in the
+// built SASS by cuda_tools/sass_rows.py, which chip_smoke.py runs). At
+// B = 32,768 there are 1,024 warps for 528 schedulers, so a warp's own
+// dependences set the pace: a variant without the moves ran no faster,
+// and one with an insertion chain one operation shorter but one
+// instruction more a row ran slower (PERF.md). A warp runs each column
+// down to the deepest band of its 32 reads: on the main path 3.3x the
+// band's own cells (the warp-level row slots that chip_smoke.py reports
+// beside the cell updates). The design answers the
+// shared-memory kernel's costs:
+//   * The column lives in R registers, the row loop fully unrolled. A row
+//     above a read's band (or above m) keeps its stale value through a
+//     select. No cell goes through shared memory, so a cell needs no
+//     address arithmetic, and row i no longer waits for row i - 1's store
+//     before its load.
+//   * The cell rule as one minimum of keyed words (derived at dp_body_reg):
+//     the diagonal and deletion candidates and the clamp are two fused
+//     add-min instructions off the insertion chain, and the chain is left
+//     with a fused add-min and the clearing of the tie key.
+//   * A block builds a 256-entry table of match masks (bit i - 1 of entry
+//     v: adapter byte i - 1 matches v), so a column costs one shared load
+//     and a row one bit test, not a byte load and a compare.
+//   * The read byte is loaded two columns ahead and its mask one column
+//     ahead, so no global load waits on a column's critical path.
+//   * Rows go in groups (RowGroup); once a column the warp finds the
+//     deepest band of its reads (__reduce_max_sync) and skips the groups
+//     below it.
+// What is left: the warp's rows below a read's own band (the 3.3x above),
+// four instructions a row of bookkeeping (the select that keeps a stale
+// row, the band's test and select), and two warps a scheduler.
 //
-// Thresholds floor(err * len) come in as an int32 table computed on the
-// host in float64; the kernels look it up and never multiply a float.
+// dp_body (shared or global column) is bound the same way, with a longer
+// chain a cell: OPS_PER_CELL there, one iteration of its row loop:
+// shared-memory address (1), load old cell, load adapter byte, compare
+// (2), three cost extracts (3), three candidate costs (3), two compares
+// and the and (3), three selects of the cost and three of the payload (6),
+// clamp (1), repack (2), band test and select (2), loop counter (1) = 24.
+// Its column lives [row][thread] in shared memory so that a warp's 32
+// threads hit 32 different banks, or [row][read] in a global scratch
+// buffer that the wrapper allocates, so that a warp's 32 accesses to one
+// row are one coalesced transaction.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace {
 
@@ -276,10 +318,296 @@ __device__ __forceinline__ void dp_body(
     out[7 * B + b] = 0;
 }
 
+// Rows a group of dp_body_reg's column: the warp skips a group whose first
+// row lies below every one of its reads' bands. Chosen by measurement for
+// each row cap (a smaller group skips more rows and adds more branches).
+template <int R> struct RowGroup { static constexpr int value = R <= 32 ? 2 : 3; };
+
+// Match masks of up to 32 rows fit a 32-bit word.
+template <int R> struct MatchMask { using type = unsigned long long; };
+template <> struct MatchMask<16> { using type = uint32_t; };
+template <> struct MatchMask<32> { using type = uint32_t; };
+
+__device__ __forceinline__ uint32_t high_word(uint32_t) { return 0; }
+__device__ __forceinline__ uint32_t high_word(unsigned long long mask)
+{
+    return (uint32_t)(mask >> 32);
+}
+
+// Row i of a column held in registers, i a run-time index: an unrolled
+// select, so that the column never moves to local memory.
+template <int R>
+__device__ __forceinline__ uint32_t row_of(const uint32_t (&cell)[R], int i)
+{
+    uint32_t w = cell[0];
+#pragma unroll
+    for (int r = 1; r < R; ++r) w = (r == i) ? cell[r] : w;
+    return w;
+}
+
+// dp_locate_word32 for adapters of m + 1 <= R rows, with the column in
+// registers: the same result as dp_body<uint32_t, false>.
+//
+// The cell rule as one minimum of keyed words. dp_body takes, for a
+// mismatch, the cheapest of the diagonal (cost(diag) + 1), the insertion
+// (cost(prev) + ins_unit) and the deletion (cost(old) + del_unit), ties won
+// by the diagonal, then by the insertion; it clamps the cost at k + 1 and
+// keeps the winner's payload (origin, matches). For a match it takes
+// diag + 1 (one match more) whatever the others cost. Here a candidate word
+// carries a 2-bit tie key between its cost and its payload, 0 for the
+// diagonal, 1 for the insertion, 2 for the deletion, so the unsigned
+// minimum of the three words and of clamp_w (cost k + 1, key and payload 0)
+// is dp_body's winner, payload and all, whenever that costs k or less. A
+// cell that costs more is dead for good: no result reads its payload
+// (every threshold is at most k) and no cell of cost k or less descends
+// from it, so the clamp word's payload there changes nothing that can be
+// observed. Off the chain: the diagonal and deletion words, their minimum
+// with clamp_w, and the match word diag + 1. On the chain: add the
+// insertion's cost and key to the row just written, take the minimum and
+// clear its key (a match keeps diag + 1); no stored cell has a key. Words
+// hold costs up to 2k + 2 before the minimum, so the wrapper sends here only
+// layouts with three bits to spare above the fields: the key and one bit
+// of overflow.
+template <int R>
+__device__ __forceinline__ void dp_body_reg(
+    const uint8_t* __restrict__ reads,     // [L, B]
+    const int32_t* __restrict__ lengths,   // [B]
+    int32_t* __restrict__ out,             // [8, B]
+    const uint8_t* __restrict__ ref_g,     // [m]
+    const int32_t* __restrict__ thr_g,     // [m + 1]
+    const DpParams p)
+{
+    using Mask = typename MatchMask<R>::type;
+    __shared__ Mask match_s[256];
+    __shared__ int32_t thr_s[R];
+    __shared__ uint8_t ref_s[R];
+
+    const int T = blockDim.x;
+    const int tid = threadIdx.x;
+    const int m = p.m;
+    const int k = p.k;
+    const int b = blockIdx.x * T + tid;
+
+    for (int i = tid; i <= m; i += T) thr_s[i] = thr_g[i];
+    for (int i = tid; i < m; i += T) ref_s[i] = ref_g[i];
+    __syncthreads();
+    // bit i - 1 of match_s[v]: adapter byte i - 1 matches read byte v
+    for (int v = tid; v < 256; v += T) {
+        Mask bits = 0;
+        for (int i = 0; i < m; ++i) {
+            const int rc = ref_s[i];
+            const bool eq = p.compare_ascii ? (rc == v) : ((rc & v) != 0);
+            bits |= (Mask)eq << i;
+        }
+        match_s[v] = bits;
+    }
+    __syncthreads();
+
+    if (b >= p.B) return;  // B is a multiple of 32: whole warps leave
+
+    const bool start_in_ref = p.flags & START_WITHIN_SEQ1;
+    const bool start_in_query = p.flags & START_WITHIN_SEQ2;
+    const bool stop_in_ref = p.flags & STOP_WITHIN_SEQ1;
+    const bool stop_in_query = p.flags & STOP_WITHIN_SEQ2;
+
+    // cell = cost | tie key (2 bits) | origin + m | matches
+    const int org_shift = p.mat_bits;
+    const int key_shift = p.mat_bits + p.org_bits;
+    const int cost_shift = key_shift + 2;
+    const uint32_t mat_mask = (1u << p.mat_bits) - 1;
+    const uint32_t org_mask = (1u << p.org_bits) - 1;
+    const uint32_t low_mask = (1u << key_shift) - 1;  // origin + matches
+    const uint32_t org_field = org_mask << org_shift;
+    const uint32_t no_key = ~(3u << key_shift);
+
+    const int clamp = k + 1;
+    const int ins_unit = min(p.ins_cost, clamp);
+    const int del_unit = min(p.del_cost, clamp);
+    // what a candidate adds to its source word: cost and tie key
+    const uint32_t diag_w = 1u << cost_shift;
+    const uint32_t ins_w =
+        ((uint32_t)ins_unit << cost_shift) | (1u << key_shift);
+    const uint32_t del_w =
+        ((uint32_t)del_unit << cost_shift) | (2u << key_shift);
+    const uint32_t clamp_w = (uint32_t)clamp << cost_shift;
+    // a word costs k or less iff it is below live_w
+    const uint32_t live_w = (uint32_t)(k + 1) << cost_shift;
+
+    const int n = lengths[b];
+    const int max_n = start_in_query ? n : min(n, m + k);
+    const int min_n = stop_in_query ? 0 : max(0, n - m - k);
+
+    // initial column min_n, by which ends are free; rows above m start at
+    // 0 and are never written, and what the rows compute from them is
+    // dropped
+    uint32_t cell[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+        long long c;
+        int o;
+        if (!start_in_ref && !start_in_query) {
+            c = (long long)max(i, min_n) * p.ins_cost;
+            o = 0;
+        } else if (start_in_ref && !start_in_query) {
+            c = (long long)min_n * p.ins_cost;
+            o = min(0, min_n - i);
+        } else if (!start_in_ref && start_in_query) {
+            c = (long long)i * p.ins_cost;
+            o = max(0, min_n - i);
+        } else {
+            c = (long long)min(i, min_n) * p.ins_cost;
+            o = min_n - i;
+        }
+        const int cc = (int)min(c, (long long)clamp);
+        cell[i] = i <= m ? ((uint32_t)cc << cost_shift) |
+                               ((uint32_t)(o + m) << org_shift)
+                         : 0u;
+    }
+
+    int best_ref_stop = m;
+    int best_query_stop = n;
+    int best_cost = m + n;
+    int best_origin = 0;
+    int best_matches = 0;
+    int last = start_in_ref ? m : min(m, k + 1);
+    bool done = false;
+
+    // read bytes two columns ahead, match masks one column ahead
+    const size_t B = p.B;
+    int q_ahead = p.L > 1 ? reads[B + b] : 0;
+    Mask mask_ahead = match_s[p.L > 0 ? reads[b] : 0];
+    const uint8_t* read_ahead = reads + 2 * B + b;  // column j + 2's byte
+
+    for (int j = 1; j <= p.L; ++j, read_ahead += B) {
+        const uint32_t mask_lo = (uint32_t)mask_ahead;
+        const uint32_t mask_hi = high_word(mask_ahead);
+        mask_ahead = match_s[q_ahead];
+        if (j + 1 < p.L) q_ahead = *read_ahead;
+
+        const bool over = done || j > max_n;
+        const bool active = !over && j > min_n;
+        const int lim = active ? last : -1;  // rows this read updates
+        const int warp_lim = __reduce_max_sync(0xffffffffu, lim);
+        if (warp_lim < 0) {
+            // no read of the warp updates this column; leave the loop
+            // once none ever will
+            if (__all_sync(0xffffffffu, over)) break;
+            continue;
+        }
+
+        // row 0; its old value is the diagonal source of row 1
+        uint32_t diag = cell[0];
+        uint32_t prev;
+        if (start_in_query) {
+            prev = (diag & ~org_field) | ((uint32_t)(j + m) << org_shift);
+        } else {
+            prev = (diag & low_mask) |
+                   ((uint32_t)min(j * ins_unit, clamp) << cost_shift);
+        }
+        cell[0] = active ? prev : diag;
+        int band = (prev < live_w) ? 0 : -1;
+
+        constexpr int G = RowGroup<R>::value;
+#pragma unroll
+        for (int g = 0; g * G + 1 < R; ++g) {
+            if (g * G + 1 > warp_lim) break;  // the same in every lane
+#pragma unroll
+            for (int r = 1; r <= G; ++r) {
+                const int i = g * G + r;
+                if (i >= R) break;
+                const uint32_t old = cell[i];
+                // off the chain: clamp, diagonal and deletion words, in an
+                // order that makes two fused add-min instructions
+                const uint32_t best =
+                    min(old + del_w, min(diag + diag_w, clamp_w));
+                // a constant bit of one 32-bit word: one LOP3 to a predicate
+                const uint32_t mask_word = (i - 1 < 32) ? mask_lo : mask_hi;
+                const bool eq = (mask_word >> ((i - 1) & 31)) & 1u;
+                // the chain: the insertion from the row just written, the
+                // minimum, the key cleared
+                const uint32_t cur =
+                    eq ? diag + 1u : (min(prev + ins_w, best) & no_key);
+                const bool write = i <= lim;
+                cell[i] = write ? cur : old;
+                band = (write && cur < live_w) ? i : band;
+                diag = old;
+                prev = cur;
+            }
+        }
+        if (!active) continue;
+
+        // band update: deepest row <= last with cost <= k, plus one
+        if (band < m) {
+            last = band + 1;
+        } else if (stop_in_query) {
+            // the band reaches row m: a full-adapter alignment ends here
+            const uint32_t w = row_of(cell, m);
+            const int ccost = (int)(w >> cost_shift);
+            const int corg = (int)((w >> org_shift) & org_mask) - m;
+            const int cmat = (int)(w & mat_mask);
+            const int length = m + min(corg, 0);
+            if (length >= p.min_overlap && ccost <= thr_s[length] &&
+                (cmat > best_matches ||
+                 (cmat == best_matches && ccost < best_cost))) {
+                best_matches = cmat;
+                best_cost = ccost;
+                best_origin = corg;
+                best_ref_stop = m;
+                best_query_stop = j;
+                done = (ccost == 0 && cmat == m);  // exact match: stop
+            }
+        }
+    }
+
+    // final-column scan: alignments that end at the end of the read
+    if (max_n == n) {
+        const int first_i = stop_in_ref ? 0 : m;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+            const uint32_t w = cell[i];
+            const int ccost = (int)(w >> cost_shift);
+            const int corg = (int)((w >> org_shift) & org_mask) - m;
+            const int cmat = (int)(w & mat_mask);
+            const int length = i + min(corg, 0);
+            if (i >= first_i && i <= m && length >= p.min_overlap &&
+                ccost <= thr_s[min(max(length, 0), m)] &&
+                (cmat > best_matches ||
+                 (cmat == best_matches && ccost < best_cost))) {
+                best_matches = cmat;
+                best_cost = ccost;
+                best_origin = corg;
+                best_ref_stop = i;
+                best_query_stop = n;
+            }
+        }
+    }
+
+    out[0 * B + b] = best_cost != m + n;
+    out[1 * B + b] = best_origin >= 0 ? 0 : -best_origin;
+    out[2 * B + b] = best_ref_stop;
+    out[3 * B + b] = best_origin >= 0 ? best_origin : 0;
+    out[4 * B + b] = best_query_stop;
+    out[5 * B + b] = best_matches;
+    out[6 * B + b] = best_cost;
+    out[7 * B + b] = 0;
+}
+
 // Replaces pallas_kernel.py::_dp_kernel_fused: the whole cell in one 32-bit
-// word. Bound by integer operations (see the note at the top); the narrow
-// word halves the memory a column takes, so twice as many reads of a long
-// adapter fit a block as with the 64-bit word.
+// word, the column in registers (dp_body_reg) for adapters of up to 63
+// bases.
+template <int R>
+__global__ void dp_locate_word32_reg_kernel(
+    const uint8_t* __restrict__ reads, const int32_t* __restrict__ lengths,
+    int32_t* __restrict__ out, const uint8_t* __restrict__ ref,
+    const int32_t* __restrict__ thr, const DpParams p)
+{
+    dp_body_reg<R>(reads, lengths, out, ref, thr, p);
+}
+
+// The same kernel for longer adapters, the column in shared or global
+// memory (dp_body); the narrow word halves the memory a column takes, so
+// twice as many reads of a long adapter fit a block as with the 64-bit
+// word.
 template <bool GLOBAL_COL>
 __global__ void dp_locate_word32_kernel(
     const uint8_t* __restrict__ reads, const int32_t* __restrict__ lengths,
@@ -306,8 +634,26 @@ __global__ void dp_locate_wide_kernel(
     dp_body<unsigned long long, GLOBAL_COL>(reads, lengths, out, ref, thr, col, p);
 }
 
-// col == nullptr: the shared-memory instantiation; else the global-column
-// one, with col the [m + 1, B] scratch buffer.
+// Raise a kernel's dynamic shared-memory limit on the current device once,
+// to the largest size a launch has asked for, instead of on every launch.
+cudaError_t allow_shared_bytes(const void* kernel, size_t bytes)
+{
+    static std::mutex lock;
+    static std::map<std::pair<const void*, int>, size_t> allowed;
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    std::lock_guard<std::mutex> guard(lock);
+    size_t& have = allowed[std::make_pair(kernel, device)];
+    if (bytes <= have) return cudaSuccess;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err == cudaSuccess) have = bytes;
+    return err;
+}
+
+// col == nullptr: the shared-memory instantiation of dp_body; else the
+// global-column one, with col the [m + 1, B] scratch buffer.
 template <typename Word>
 int launch(void (*shared_kernel)(const uint8_t*, const int32_t*, int32_t*,
                                  const uint8_t*, const int32_t*, Word*,
@@ -328,12 +674,32 @@ int launch(void (*shared_kernel)(const uint8_t*, const int32_t*, int32_t*,
     }
     const size_t smem = sizeof(Word) * (size_t)(p.m + 1) * threads +
                         sizeof(int32_t) * (size_t)(p.m + 1) + (size_t)p.m;
-    cudaError_t err = cudaFuncSetAttribute(
-        shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = allow_shared_bytes((const void*)shared_kernel, smem);
     if (err != cudaSuccess) return (int)err;
     shared_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
         (const uint8_t*)reads, (const int32_t*)lengths, (int32_t*)out,
         (const uint8_t*)ref, (const int32_t*)thr, nullptr, p);
+    return (int)cudaGetLastError();
+}
+
+int launch_reg(int row_cap, const void* reads, const void* lengths,
+               void* out, const void* ref, const void* thr, const DpParams& p,
+               int threads, void* stream)
+{
+    void (*kernel)(const uint8_t*, const int32_t*, int32_t*, const uint8_t*,
+                   const int32_t*, DpParams);
+    switch (row_cap) {
+        case 16: kernel = dp_locate_word32_reg_kernel<16>; break;
+        case 32: kernel = dp_locate_word32_reg_kernel<32>; break;
+        case 48: kernel = dp_locate_word32_reg_kernel<48>; break;
+        case 64: kernel = dp_locate_word32_reg_kernel<64>; break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    if (p.m + 1 > row_cap) return (int)cudaErrorInvalidValue;
+    const int blocks = (p.B + threads - 1) / threads;
+    kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)reads, (const int32_t*)lengths, (int32_t*)out,
+        (const uint8_t*)ref, (const int32_t*)thr, p);
     return (int)cudaGetLastError();
 }
 
@@ -357,18 +723,24 @@ DpParams make_params(int L, int B, int m, int k, int flags, int min_overlap,
 // fit shared memory.
 extern "C" {
 
+// row_cap 16, 32, 48 or 64: dp_body_reg with that many rows (col must be
+// nullptr); 0: dp_body, in shared memory or, given col, in global memory.
 int dp_locate_word32(const void* reads, const void* lengths, void* out,
                      const void* ref, const void* thr, void* col, int L, int B,
                      int m, int k, int flags, int min_overlap, int ins_cost,
                      int del_cost, int compare_ascii, int mat_bits,
-                     int org_bits, int threads, void* stream)
+                     int org_bits, int row_cap, int threads, void* stream)
 {
+    const DpParams p = make_params(L, B, m, k, flags, min_overlap, ins_cost,
+                                   del_cost, compare_ascii, mat_bits, org_bits);
+    if (row_cap != 0) {
+        if (col != nullptr) return (int)cudaErrorInvalidValue;
+        return launch_reg(row_cap, reads, lengths, out, ref, thr, p, threads,
+                          stream);
+    }
     return launch<uint32_t>(
         dp_locate_word32_kernel<false>, dp_locate_word32_kernel<true>, reads,
-        lengths, out, ref, thr, col,
-        make_params(L, B, m, k, flags, min_overlap, ins_cost, del_cost,
-                    compare_ascii, mat_bits, org_bits),
-        threads, stream);
+        lengths, out, ref, thr, col, p, threads, stream);
 }
 
 int dp_locate_wide(const void* reads, const void* lengths, void* out,

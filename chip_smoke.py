@@ -6,19 +6,25 @@ Run from the root of a checkout, with one NVIDIA Hopper card:
 
     python3 chip_smoke.py [--seed N] [--reads N]
 
-It imports ``atropos_tpu_torch`` only (never ``jax``, never ``atropos_tpu``)
-and prints one JSON object a line:
+It imports ``atropos_tpu_torch`` and the measurement tools beside it,
+``cuda_tools`` (never ``jax``, never ``atropos_tpu``), and prints one JSON
+object a line:
 
 1. ``device``   the card's name and power limit as ``nvidia-smi`` gives them
 2. ``build``    seconds for ``nvcc`` (the DP kernels, the diagonal-count
                 kernels, the dtype probe's kernels) and ``g++`` (the host
                 runtime), all built in parallel from the sources in the
-                checkout
+                checkout; the instructions a row of each register
+                instantiation of ``dp_locate_word32`` takes, counted in the
+                SASS just built (``cuda_tools/sass_rows.py``)
 3. ``grid``     ``dp_locate_word32`` and ``dp_locate_wide`` against the plain
                 PyTorch DP on the card over a covering set of configurations
-                (indel costs 1, 2, 3 and 100000; adapters of 1,200 and 2,000
-                bases whose column lives in global memory): exact equality
-                of all result rows (tolerance 0, integers)
+                (indel costs 1, 2, 3 and 100000; adapters on both sides of
+                every row cap of ``dp_locate_word32``'s register column, 15,
+                16, 31, 32, 47, 48, 63 and 64 bases; adapters of 1,200 and
+                2,000 bases whose column lives in global memory): exact
+                equality of all result rows (tolerance 0, integers), and
+                which instantiation served each
 4. ``diag_grid``  ``diag_counts_u8`` and ``diag_counts_i32`` against their
                 plain version over windows up to 301 and two alphabets
 5. ``main_path``  a seeded FASTQ of 2,000,000 reads of 150 bases through
@@ -56,8 +62,15 @@ and prints one JSON object a line:
                 the ported slice on the card against ``tests/conformance``
 15. ``kernels``  for each kernel: launches on its path (counts set to 0 just
                 before the path and read just after), error against the plain
-                version, time at the path's shape, the plain version's time
-                and the card's bound for the same work
+                version, time at the path's shape (``ms``: the median of
+                single launches, each between two events, the wrapper's host
+                work included; ``queued_ms``: launches queued behind a device
+                sleep, the kernel alone), the plain version's time,
+                the card's bound for the same work, the time of one PyTorch
+                call that computes the same function where there is one (the
+                diagonal counts: a grouped ``conv1d`` over one-hot codes), and
+                for the DP kernels the instantiation that served the shape,
+                the cell updates and the warp-level row slots
 16. the last line: ``{"ok": true, "device": {...}}``
 
 Every path whose output the card makes also runs on ``--device cpu`` for a
@@ -79,7 +92,7 @@ import sys
 import tempfile
 import threading
 import time
-from functools import partial
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -108,6 +121,7 @@ from atropos_tpu_torch.commands import get_command  # noqa: E402
 from atropos_tpu_torch.commands import stats  # noqa: E402
 from atropos_tpu_torch.engine import turbo  # noqa: E402
 from atropos_tpu_torch.tools import dtype_probe  # noqa: E402
+from cuda_tools import sass_rows, timing  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRUSEQ = "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
@@ -130,7 +144,15 @@ HBM_BYTES_PER_SECOND = 3.35e12  # H100 SXM data sheet
 INT_OPS_PER_SM_CLOCK = 128
 
 BACK, FRONT, ANYWHERE, PREFIX, SUFFIX = 14, 11, 15, 8, 2
+# adapter lengths on both sides of each row cap of dp_locate_word32's
+# register column (m + 1 rows of 16, 32, 48, 64) and at 64, the first
+# served from shared memory
+ROW_CAP_MS = (15, 16, 31, 32, 47, 48, 63, 64)
 BASES = np.frombuffer(b"ACGT", np.uint8)
+#: instructions of one row of each register instantiation of
+#: dp_locate_word32 without the register moves, by row cap: counted in
+#: phase_build from the SASS of the library it built
+REGISTER_OPS_PER_ROW = {}
 
 
 def check(ok, message):
@@ -149,6 +171,19 @@ def smi(query):
         capture_output=True, text=True, check=True,
     )
     return done.stdout.strip().splitlines()[0]
+
+
+@lru_cache(maxsize=None)
+def sm_clock_mhz():
+    """The card's largest SM clock."""
+    return float(smi("clocks.max.sm").split()[0])
+
+
+def device_times(fn, launches, queued=True):
+    """:func:`cuda_tools.timing.device_times` at the card's SM clock:
+    ``ms`` the median of single launches (the reading of every kernel time
+    of the port), ``queued_ms`` the work alone."""
+    return timing.device_times(fn, launches, sm_clock_mhz(), queued)
 
 
 # -- build --------------------------------------------------------------------
@@ -187,8 +222,25 @@ def phase_build():
         line.strip()
         for name in nvcc
         for line in results[name][0][1].splitlines()
-        if "registers" in line or "Compiling entry" in line
+        if "registers" in line or "Compiling entry" in line or "stack frame" in line
     ]
+    # dp_locate_word32's register instantiations keep the column in
+    # registers only if ptxas gave them no stack frame and no spills
+    register_frames = {}
+    entry = None
+    for line in ptxas:
+        if "Compiling entry" in line:
+            entry = line.split("'")[1]
+        elif "stack frame" in line and "reg_kernel" in (entry or ""):
+            register_frames[entry] = line
+    check(len(register_frames) == len(cuda_kernel.ROW_CAPS), register_frames)
+    for entry, line in register_frames.items():
+        check(line.startswith("0 bytes stack frame, 0 bytes spill stores"), (entry, line))
+    # the register instantiations' operations a row, from the SASS just
+    # built: a row's instructions without the moves of the unrolled column
+    listing = sass_rows.disassemble("dp_align")
+    rows = {cap: sass_rows.row_instructions(listing, cap) for cap in cuda_kernel.ROW_CAPS}
+    REGISTER_OPS_PER_ROW.update({cap: row["ops_per_row"] for cap, row in rows.items()})
     emit({
         "build": {
             "seconds": time.perf_counter() - began,
@@ -196,6 +248,11 @@ def phase_build():
             "gxx_seconds": results["g++ fastq.cpp"][1],
             "flags": " ".join(_build.NVCC_FLAGS),
             "ptxas": ptxas,
+            "register_rows": {
+                cap: {key: row[key] for key in (
+                    "group_rows", "instructions_per_row", "moves_per_row", "ops_per_row")}
+                for cap, row in rows.items()
+            },
         }
     })
 
@@ -317,7 +374,35 @@ def grid_configs():
                         indel_cost=100000, e=0.3, m=1200, L=3072, B=1024, big=True))
     configs.append(dict(idx=43, flag_name="b", flags=ANYWHERE, place="any", iupac=True,
                         indel_cost=100000, e=0.1, m=2000, L=2048, B=1024, big=True))
-    return configs
+    # adapters on both sides of every row cap of dp_locate_word32's register
+    # column (16, 32, 48 and 64 rows: m + 1 of them) and one past it, each m
+    # twice, once in each compare mode; again a covering set
+    row_caps = []
+    for i in range(2 * len(ROW_CAP_MS)):
+        name, flags, place = flag_sets[i % 5]
+        indel_cost = (1, 2, 100000, 3)[(i // 2) % 4]
+        rates = (0.2, 0.3) if indel_cost in (2, 3) else (0.1, 0.2)
+        row_caps.append(dict(
+            idx=44 + i, flag_name=name, flags=flags, place=place,
+            iupac=bool((i // len(ROW_CAP_MS) + i) % 2),
+            indel_cost=indel_cost,
+            e=rates[(i // 3 + i // 7) % 2],
+            m=ROW_CAP_MS[i % len(ROW_CAP_MS)],
+            L=(32, 160, 320)[(i // 3 + i) % 3],
+            B=32768,
+        ))
+    for factor, values in (
+        ("flag_name", ["a", "g", "b", "prefix", "suffix"]), ("iupac", [False, True]),
+        ("indel_cost", [1, 2, 3, 100000]), ("e", [0.1, 0.2, 0.3]), ("m", ROW_CAP_MS),
+        ("L", [32, 160, 320]),
+    ):
+        for value in values:
+            count = sum(1 for c in row_caps if c[factor] == value)
+            check(count >= 2, ("row caps", factor, value, count))
+    for m in ROW_CAP_MS:
+        modes = {c["iupac"] for c in row_caps if c["m"] == m}
+        check(modes == {False, True}, ("both compare modes", m, modes))
+    return configs + row_caps
 
 
 def make_adapter(rng, m, iupac):
@@ -336,6 +421,7 @@ def phase_grid(seed):
     compared = {"dp_locate_word32": 0, "dp_locate_wide": 0}
     max_err = {"dp_locate_word32": 0, "dp_locate_wide": 0}
     global_column = {}
+    served = {}  # dp_locate_word32's instantiations: configurations each served
     found_total = 0
     for cfg in grid_configs():
         rng = np.random.default_rng([seed, 1, cfg["idx"]])
@@ -358,6 +444,10 @@ def phase_grid(seed):
                 kernels.append(dp_locate_wide)  # right where both apply
         else:
             kernels.append(dp_locate_wide)
+        if fits32:
+            how = dp_locate_word32.instantiation(cfg["m"], aligner.k, cfg["L"])
+            key = "{} {}".format(how.kind, how.row_cap) if how.row_cap else how.kind
+            served[key] = served.get(key, 0) + 1
         for kernel in kernels:
             got = kernel(reads_T, lens, aligner.ref_bytes, aligner.thresholds, **params)
             torch.cuda.synchronize()
@@ -384,11 +474,14 @@ def phase_grid(seed):
         'compared["dp_locate_word32"] >= 32 and compared["dp_locate_wide"] >= 15',
     )
     check(sorted(global_column) == ["dp_locate_wide", "dp_locate_word32"], global_column)
+    for key in ["registers {}".format(cap) for cap in cuda_kernel.ROW_CAPS] + ["shared"]:
+        check(served.get(key, 0) >= 2, ("dp_locate_word32 instantiation", key, served))
     check(found_total > 0, 'found_total > 0')
     emit({
         "grid": {
             "configurations": len(grid_configs()),
             "compared": compared,
+            "dp_locate_word32_instantiations": served,
             "reads_with_a_match": found_total,
             "tolerance": 0,
             "seconds": time.perf_counter() - began,
@@ -399,44 +492,50 @@ def phase_grid(seed):
 
 
 def time_kernel(kernel, aligner, reads_T, lens, launches=20):
-    """Median time of one launch (CUDA events after a warm-up), the plain
-    version's time, and the bound for the cells these reads need."""
+    """Times of one launch (``device_times``: ``ms`` one launch between
+    two events, the wrapper's host work before it included; ``queued_ms``
+    the kernel alone), the plain version's time, the instantiation that
+    served the shape, and the bound for the cells these reads need: at the
+    operations a cell of that instantiation takes (a register
+    instantiation's from its SASS, :data:`REGISTER_OPS_PER_ROW`; else
+    ``dp_body``'s 24), and beside it at 24. Also the warp-level row slots:
+    the lanes a warp occupies when it runs each column down to its reads'
+    deepest band."""
     params = aligner._dp_params()
     args = (reads_T, lens, aligner.ref_bytes, aligner.thresholds)
-    for _ in range(3):
-        kernel(*args, **params)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(launches):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = kernel(*args, **params)
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
-    torch.cuda.synchronize()
+    times, out = device_times(lambda: kernel(*args, **params), launches)
     began = time.perf_counter()
-    expected, cells = _locate_kernel(*args, count_cells=True, **params)
+    expected, cells, row_slots = _locate_kernel(*args, count_cells=True, **params)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - began) * 1e3
     if not torch.equal(out, expected):
         raise AssertionError(kernel.name + " disagrees at its path's shape")
     L, B = reads_T.shape
     props = torch.cuda.get_device_properties(0)
-    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
-    ops_ms = (
-        int(cells) * cuda_kernel.OPS_PER_CELL
-        / (props.multi_processor_count * INT_OPS_PER_SM_CLOCK * clock_hz) * 1e3
+    clock_hz = sm_clock_mhz() * 1e6
+    how = kernel.instantiation(aligner.m, aligner.k, L)
+    ops_per_cell = (
+        REGISTER_OPS_PER_ROW[how.row_cap] if how.kind == "registers"
+        else cuda_kernel.OPS_PER_CELL
     )
+    ops_rate = props.multi_processor_count * INT_OPS_PER_SM_CLOCK * clock_hz
+    ops_ms = int(cells) * ops_per_cell / ops_rate * 1e3
     bytes_ms = (L * B + 4 * B + 32 * B) / HBM_BYTES_PER_SECOND * 1e3
     return dict(
-        ms=float(np.median(times)),
+        ms=times["ms"],
+        queued_ms=times["queued_ms"],
+        host_ms=times["host_ms"],
         plain_ms=plain_ms,
         bound_ms=max(ops_ms, bytes_ms),
         bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        # no single PyTorch call computes a banded DP with traceback fields
         library_ms=None,
+        instantiation=how._asdict(),
+        ops_per_cell=ops_per_cell,
+        bound_ms_at_24_ops=max(int(cells) * cuda_kernel.OPS_PER_CELL / ops_rate * 1e3, bytes_ms),
         shape=dict(m=aligner.m, k=aligner.k, L=L, B=B),
         cell_updates=int(cells),
+        warp_row_slots=int(row_slots),
         full_matrix_cells=L * B * (aligner.m + 1),
         sm_count=props.multi_processor_count,
         sm_clock_mhz=clock_hz / 1e6,
@@ -506,48 +605,70 @@ def phase_diag_grid(seed):
     return max_err
 
 
+def diag_counts_by_conv1d(ref_T, query_T, m_col):
+    """The diagonal counts by one PyTorch call, the yardstick of the
+    diagonal-count kernels (the port never calls it): a grouped ``conv1d``,
+    one group a pair, of the ref window's one-hot codes (zero vectors from
+    position m_b on, and W - 1 zero columns after) with the query window's.
+    Cross-correlation sums, for each offset s, the products of equal
+    positions t and s + t, so channel b at s counts the t < m_b - s where
+    the bytes agree. Returns the call and the number of symbols; float32 (TF32 in
+    cuDNN's default) is exact here: the codes are 0 and 1, the sums at most
+    W."""
+    W, B = query_T.shape
+    symbols = torch.unique(torch.cat([ref_T.flatten(), query_T.flatten()]))
+    live = torch.arange(W, device=ref_T.device)[:, None] < m_col.reshape(1, -1).long()
+
+    def one_hot(plane):  # [W, B] -> [B, S, W], zero past each pair's length
+        codes = (plane[None, :, :] == symbols[:, None, None]) & live[None, :, :]
+        return codes.permute(2, 0, 1).float().contiguous()
+
+    ref_codes = torch.nn.functional.pad(one_hot(ref_T), (0, W - 1))
+    x = ref_codes.reshape(1, B * len(symbols), 2 * W - 1)
+    weight = one_hot(query_T)
+    return lambda: torch.nn.functional.conv1d(x, weight, groups=B), len(symbols)
+
+
 def time_diag(kernel, ref_T, query_T, m_col, launches=20):
-    """Median time of one launch of a diagonal-count kernel, its plain
-    version's time, and the bound for this batch: the compares it needs
-    (sum over pairs and diagonals s of min(W, m - s)) at one integer
-    operation each, against both planes read once and the
-    counts written once."""
-    for _ in range(3):
-        kernel(ref_T, query_T, m_col)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(launches):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = kernel(ref_T, query_T, m_col)
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
+    """Time of one launch of a diagonal-count kernel (``device_times``), its plain
+    version's time, the time of one PyTorch call that computes the same
+    counts (:func:`diag_counts_by_conv1d`, which must agree), and the bound
+    for this batch: the compares it needs (sum over pairs and diagonals s
+    of min(W, m - s)) at one integer operation each, against both planes
+    read once and the counts written once."""
+    times, out = device_times(lambda: kernel(ref_T, query_T, m_col), launches)
     began = time.perf_counter()
     expected = kernel.plain(ref_T, query_T, m_col)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - began) * 1e3
     if not torch.equal(out, expected):
         raise AssertionError(kernel.name + " disagrees at its path's shape")
+    library_call, n_symbols = diag_counts_by_conv1d(ref_T, query_T, m_col)
+    # a few launches: the call takes hundreds of milliseconds, and its host
+    # waits for the card, so no queued reading
+    library, library_out = device_times(library_call, 5, queued=False)
+    library_counts = library_out[0].T.round().long()
+    check(torch.equal(library_counts, out.long()),
+          kernel.name + ": the conv1d counts differ from the kernel's")
     W, B = query_T.shape
     m = m_col.cpu().numpy().astype(np.int64)
     compares = int(
         np.clip(np.minimum(W, m[None, :] - np.arange(W)[:, None]), 0, None).sum()
     )
     props = torch.cuda.get_device_properties(0)
-    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    clock_hz = sm_clock_mhz() * 1e6
     ops_ms = compares / (props.multi_processor_count * INT_OPS_PER_SM_CLOCK * clock_hz) * 1e3
     out_bytes = W * B * out.element_size()
     bytes_ms = (2 * W * B + 4 * B + out_bytes) / HBM_BYTES_PER_SECOND * 1e3
     return dict(
-        ms=float(np.median(times)),
+        ms=times["ms"],
+        queued_ms=times["queued_ms"],
+        host_ms=times["host_ms"],
         plain_ms=plain_ms,
         bound_ms=max(ops_ms, bytes_ms),
         bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-        # no single PyTorch call computes per-diagonal match counts: the
-        # nearest, a batched correlation (conv1d), sums products, not
-        # equalities, and would need one-hot planes of every symbol
-        library_ms=None,
+        library_ms=library["ms"],
+        library_call="conv1d, groups=B, one-hot codes of {} symbols".format(n_symbols),
         shape=dict(W=W, B=B),
         compares=compares,
         bytes=2 * W * B + 4 * B + out_bytes,
@@ -715,7 +836,10 @@ def time_device_step(fastq, work, launches=20):
     """Time of the lane's whole device step for one batch of the main path
     (unpack, table decode into [L, B], the DP kernel, result packing and
     int16 narrowing) beside the DP kernel alone: what the torch ops around
-    the kernel cost on the card."""
+    the kernel cost on the card. ``step_ms`` is one step between two
+    events (the host's work of its launches included, the reading of every
+    kernel time of the port), ``step_queued_ms`` the step's device work
+    alone (``device_times``)."""
     from atropos_tpu_torch.commands import get_command
     from atropos_tpu_torch.commands.trim import RecordHandler
     from atropos_tpu_torch.commands.trim.builder import TrimStackBuilder
@@ -736,24 +860,18 @@ def time_device_step(fastq, work, launches=20):
         chunk = runtime.parse_chunk(handle.read(32768 * 314))
     tok, args, bits = lane.prepare(chunk, slice(0, 32768))
     main_dev, win_dev, tables_dev = [arg.to(DEVICE) for arg in args]
-    for _ in range(3):
-        lane._step(tok.width, bits, main_dev, win_dev, tables_dev)
-    torch.cuda.synchronize()
     cuda_kernel.reset_launch_counts()
-    times = []
-    for _ in range(launches):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        bundle = lane._step(tok.width, bits, main_dev, win_dev, tables_dev)
-        stop.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(stop))
+    times, bundle = device_times(
+        lambda: lane._step(tok.width, bits, main_dev, win_dev, tables_dev), launches
+    )
+    # device_times: 3 warm-ups, then the single and the queued launches
     check(
-        cuda_kernel.launch_counts()["dp_locate_word32"] == launches,
-        'cuda_kernel.launch_counts()["dp_locate_word32"] == launches',
+        cuda_kernel.launch_counts()["dp_locate_word32"] == 3 + 2 * launches,
+        cuda_kernel.launch_counts(),
     )
     return dict(
-        step_ms=float(np.median(times)),
+        step_ms=times["ms"],
+        step_queued_ms=times["queued_ms"],
         bits_per_base=bits,
         upload_bytes=int(sum(arg.numel() * arg.element_size() for arg in args)),
         bundle_bytes=int(bundle.numel() * bundle.element_size()),
@@ -1321,22 +1439,12 @@ def phase_dtype_probe(seed, launches=20):
                         compared += 1
     timings = {}
     props = torch.cuda.get_device_properties(0)
-    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    clock_hz = sm_clock_mhz() * 1e6
     for kernel in dtype_probe.KERNELS:
         per_shape = {}
         for L, N in dtype_probe.SHAPES:
             reads = dtype_probe.make_reads([seed, 12, L], L, N, 4, device=DEVICE)
-            for _ in range(3):
-                kernel(reads, True)
-            torch.cuda.synchronize()
-            times = []
-            for _ in range(launches):
-                start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = kernel(reads, True)
-                stop.record()
-                torch.cuda.synchronize()
-                times.append(start.elapsed_time(stop))
+            times, out = device_times(lambda: kernel(reads, True), launches)
             plain_began = time.perf_counter()
             expected = kernel.plain(reads, True)
             torch.cuda.synchronize()
@@ -1351,7 +1459,8 @@ def phase_dtype_probe(seed, launches=20):
             )
             bytes_ms = (L * N + 4 * dtype_probe.OUT_ROWS * N) / HBM_BYTES_PER_SECOND * 1e3
             per_shape[(L, N)] = dict(
-                ms=float(np.median(times)), plain_ms=plain_ms,
+                ms=times["ms"], queued_ms=times["queued_ms"], host_ms=times["host_ms"],
+                plain_ms=plain_ms,
                 bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 library_ms=None,
@@ -1567,6 +1676,7 @@ def main():
         emit({"dp_locate_wide_at_main_path_shape": wide_at_truseq})
         step = time_device_step(fastq, work)
         step["dp_kernel_ms"] = word32_time["ms"]
+        step["dp_kernel_queued_ms"] = word32_time["queued_ms"]
         emit({"device_step_at_main_path_shape": step})
         os.remove(fastq)
         wide_launches, wide_time = phase_long_path(work, args.seed)

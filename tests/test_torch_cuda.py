@@ -82,6 +82,62 @@ def test_kernel_equals_plain_version(card, kernel_name, flags, indel_cost):
     assert int(expected[0].sum()) > 0
 
 
+#: adapter lengths on both sides of each row cap of dp_locate_word32's
+#: register column (m + 1 rows of 16, 32, 48, 64), and 64, the first
+#: served from shared memory
+ROW_CAP_MS = (15, 16, 31, 32, 47, 48, 63, 64)
+FLAG_SETS = (14, 11, 15, 8, 2)
+
+
+@pytest.mark.parametrize("flags", FLAG_SETS)
+@pytest.mark.parametrize("m", ROW_CAP_MS)
+def test_register_column_equals_plain_version(card, m, flags):
+    """Each register instantiation (and the shared-memory one at m = 64)
+    against the plain version: every flag set, both compare modes for
+    each m, the indel costs 1, 2, 3 and 100000, error rates 0.1 to 0.3
+    and L of 32, 160 and 320 in turn."""
+    import torch
+
+    from atropos_tpu_torch.align import cuda_kernel
+
+    i = ROW_CAP_MS.index(m) + FLAG_SETS.index(flags)
+    indel_cost = (1, 2, 3, 100000)[i % 4]
+    e = {1: (0.1, 0.2, 0.3)[i % 3], 2: 0.2, 3: 0.3, 100000: (0.3, 0.1)[i % 2]}[indel_cost]
+    L = (32, 160, 320)[(i // 2) % 3]
+    if flags in (8, 2) and L < 2 * m:
+        L = 160  # an anchored adapter needs reads longer than itself
+    wild = bool((ROW_CAP_MS.index(m) + i) % 2)
+    rng = np.random.default_rng(m * 16 + flags)
+    letters = np.frombuffer(b"ACGTNRY" if wild else b"ACGT", np.uint8)
+    adapter = letters[rng.integers(0, len(letters), m)].tobytes().decode()
+    kernel = cuda_kernel.dp_locate_word32
+    aligner = cuda_kernel.CudaAligner(
+        adapter, e, flags, wildcard_ref=wild, min_overlap=3,
+        indel_cost=indel_cost, device=card,
+    )
+    how = kernel.instantiation(m, aligner.k, L)
+    if m < 64:
+        assert how.kind == "registers" and how.row_cap >= m + 1 > how.row_cap - 16
+    else:
+        assert how.kind == "shared"
+    # planted copies carry a base that each wildcard matches
+    planted = adapter.translate(str.maketrans("NRY", "AAC"))
+    reads, lengths = _batch(m + flags, 512, L, planted, flags)
+    dev = torch.from_numpy(reads).to(card)
+    if not aligner._compare_ascii:
+        dev = aligner.query_lut[dev.long()]
+    reads_T = dev.T.contiguous()
+    lens = torch.from_numpy(lengths).to(card)[None, :].contiguous()
+    args = (reads_T, lens, aligner.ref_bytes, aligner.thresholds)
+    before = kernel.launches
+    got = kernel(*args, **aligner._dp_params())
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    expected = kernel.plain(*args, **aligner._dp_params())
+    assert torch.equal(got, expected)
+    assert int(expected[0].sum()) > 0
+
+
 @pytest.mark.parametrize("kernel_name,m,e,L,indel_cost", [
     ("dp_locate_wide", 1200, 0.3, 3072, 100000),
     ("dp_locate_word32", 2000, 0.1, 2048, 100000),

@@ -46,14 +46,15 @@ def _run(code, *args):
 
 def _sources():
     paths = [os.path.join(ROOT, "chip_smoke.py")]
-    for folder, _, names in os.walk(PORT):
-        if os.path.basename(folder) in ("build", "__pycache__"):
-            continue
-        paths += [
-            os.path.join(folder, name)
-            for name in names
-            if name.endswith((".py", ".cu", ".cpp"))
-        ]
+    for top in (PORT, os.path.join(ROOT, "cuda_tools")):
+        for folder, _, names in os.walk(top):
+            if os.path.basename(folder) in ("build", "__pycache__"):
+                continue
+            paths += [
+                os.path.join(folder, name)
+                for name in names
+                if name.endswith((".py", ".cu", ".cpp"))
+            ]
     return sorted(paths)
 
 
@@ -77,6 +78,7 @@ def test_sources_exist():
         "atropos_tpu_torch/csrc/diag_counts.cu",
         "atropos_tpu_torch/csrc/dtype_probe.cu",
         "atropos_tpu_torch/tools/dtype_probe.py",
+        "cuda_tools/timing.py",
         "atropos_tpu_torch/engine/turbo.py",
         "atropos_tpu_torch/runtime/fastq.cpp",
     ):
@@ -136,6 +138,7 @@ def _called_names(node):
         p for p in _sources()
         if p.endswith(".py") and (
             "/align/" in p or "/engine/" in p or "/tools/" in p
+            or "/cuda_tools/" in p
             or p.endswith("/commands/stats.py")
         )
     ],
