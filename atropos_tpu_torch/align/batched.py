@@ -23,7 +23,10 @@ when the device is ``cpu``. It is written for clarity, not speed.
   mismatches: ``m - i``; deletion-born and match cells: ``m + i``), which
   reproduces the sequential order for every pair of candidates, and the
   chain is resolved by ``d_max = k // ins_cost`` relaxation passes: a
-  longer chain costs more than ``k`` and can never be observed.
+  longer chain costs more than ``k`` and can never be observed. Only the
+  rows the column writes relax (a row takes an insertion from the row above
+  it, never from below, so the rows past ``last`` feed none that is
+  written), and the passes stop at one that changes no row.
 
 - **No float math.** ``cost <= length * max_error_rate`` is precomputed
   on the host with Python doubles into an integer table indexed by length.
@@ -224,10 +227,16 @@ def _locate_kernel(
         key = torch.cat([cost_0 * SUB + m, key], dim=1)
         org = torch.cat([origin_0, org], dim=1)
         mat = torch.cat([matches[:, :1], mat], dim=1)
-        # insertion relaxation over rows 1..m; match cells are immune
+        # masked write-back: rows 0..last of the active reads
+        in_rows = rows <= last[:, None]
+        write = active[:, None] & in_rows
+        # insertion relaxation over the rows written; match cells are immune
+        movable = write[:, 1:] & ~eq
         for _ in range(d_max):
             cand = key[:, :-1] + ins_cost * SUB
-            take = (cand < key[:, 1:]) & ~eq
+            take = (cand < key[:, 1:]) & movable
+            if not bool(take.any()):
+                break  # a fixed point
             key = torch.cat(
                 [key[:, :1], torch.where(take, cand, key[:, 1:])], dim=1
             )
@@ -238,9 +247,6 @@ def _locate_kernel(
                 [mat[:, :1], torch.where(take, mat[:, :-1], mat[:, 1:])], dim=1
             )
 
-        # masked write-back: rows 0..last of the active reads
-        in_rows = rows <= last[:, None]
-        write = active[:, None] & in_rows
         cost = torch.where(write, key // SUB, cost)
         origin = torch.where(write, org, origin)
         matches = torch.where(write, mat, matches)

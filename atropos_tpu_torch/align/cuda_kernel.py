@@ -14,8 +14,12 @@ wrapper                replaces                                    cell word
 
 Each wrapper picks the kernel's instantiation from the shape
 (:meth:`_DpKernel.instantiation`: for ``dp_locate_word32`` the cell column
-in registers for adapters of up to 63 bases, else in shared memory, else in
-global memory), checks its arguments, allocates the ``[8, B]`` output (and,
+in registers for adapters of up to 63 bases; for ``dp_locate_wide`` one
+warp a read, the column in register strips over its lanes, for adapters of
+up to 896 bases whose cell a 32-bit word cannot hold, as on the long path,
+where one thread a read ran 32 warps on 32 of the card's 132 SMs; else in
+shared memory, else in global memory), checks its arguments, allocates the
+``[8, B]`` output (and,
 for an adapter whose cell column does not fit shared memory, the
 ``[m + 1, B]`` global-memory column the kernel then works in),
 launches its kernel on PyTorch's current stream without synchronizing,
@@ -44,6 +48,18 @@ from atropos_tpu_torch.align.batched import BatchAligner, _locate_kernel
 #: (``cuda_tools/sass_rows.py``)
 OPS_PER_CELL = 24
 
+#: integer operations of one band cell of ``dp_body_warp`` (the strips),
+#: what the two-plane keyed rule needs, counted from the source: off the
+#: insertion chain the diagonal's and the deletion's upper words (2), their
+#: minimum with the clamp (1), the diagonal-or-deletion test and its
+#: payload's select (2), the match test (1), the match's upper word and
+#: payload (2); on the chain the insertion's keyed word and its test (2),
+#: its and the winner's stored upper words (2) and the select of each plane
+#: (2). The stale row's select and the band's test are bookkeeping, left
+#: out; the built kernel's SASS takes some 23.5 instructions a strip row
+#: with them (``cuda_tools/sass_rows.py``)
+STRIP_OPS_PER_CELL = 14
+
 #: row caps of ``dp_locate_word32``'s register instantiations: an adapter of
 #: m bases takes the smallest cap of at least m + 1 rows. One 64-row
 #: instantiation for all of them ran 1.4 % slower at the main path's shape
@@ -53,6 +69,16 @@ ROW_CAPS = (16, 32, 48, 64)
 #: threads of a block of the register instantiations: of 32, 64 and 128,
 #: 128 was fastest at the main path's shape (PERF.md)
 REGISTER_THREADS = 128
+
+#: rows a lane holds in ``dp_locate_wide``'s warp instantiation (one warp
+#: a read, lane l holding rows 1 + l R .. (l + 1) R): adapters of up to
+#: 32 R = 896 bases, the long path's 880 among them; the one size built
+#: and measured (PERF.md)
+STRIP_ROWS = 28
+
+#: threads of a block of the warp instantiation, one read a warp: of 32, 64
+#: and 128, 128 was fastest at the long path's shape (PERF.md)
+STRIP_THREADS = 128
 
 #: dynamic shared memory a block may have on sm_90
 MAX_SHARED_BYTES = 232448
@@ -64,9 +90,10 @@ MAX_SHARED_BYTES = 232448
 #: global memory
 THREADS_PER_BLOCK = 64
 
-#: how a launch runs: ``kind`` "registers", "shared" or "global" (where the
-#: cell column lives), ``row_cap`` (rows of a register column, else 0) and
-#: ``threads`` a block
+#: how a launch runs: ``kind`` "registers", "shared" or "global" (where one
+#: thread's cell column lives) or "warps" (one warp a read, the column in
+#: register strips over its lanes), ``row_cap`` (rows of a register column,
+#: or rows a lane of a strip, else 0) and ``threads`` a block
 Instantiation = collections.namedtuple("Instantiation", "kind row_cap threads")
 
 _LIB_NAME = "dp_align"
@@ -95,14 +122,29 @@ def cell_layout(m, k, L, word_bits):
     return mat_bits, org_bits
 
 
+def strip_layout(m, k, L):
+    """Field widths ``(mat_bits, org_bits)`` of ``dp_locate_wide``'s warp
+    instantiation for (m, k, L), or None where it cannot serve them. Its
+    cell is two 32-bit planes, cost << 2 | tie key above the payload
+    (origin + m) << mat_bits | matches: the payload must fit 32 bits, and
+    the final scan's key, matches << 16 | 0xffff - cost, needs matches and
+    costs below 2**15 and 2**16."""
+    mat_bits = _bits(m)
+    org_bits = _bits(L + m)
+    if mat_bits + org_bits > 32 or m >= 1 << 15 or k >= 1 << 16:
+        return None
+    return mat_bits, org_bits
+
+
 def _lib():
     lib = _build.load(_LIB_NAME)
     if not getattr(lib, "_atropos_bound", False):
-        # dp_locate_word32 takes the row cap of its register column too
-        for name, ints in (("dp_locate_word32", 13), ("dp_locate_wide", 12)):
+        # both take the row cap of their register columns; dp_locate_wide
+        # also a pointer to the warp instantiation's counts
+        for name, tail in (("dp_locate_word32", 1), ("dp_locate_wide", 2)):
             fn = getattr(lib, name)
             fn.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * ints + [ctypes.c_void_p]
+                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p] * tail
             )
             fn.restype = ctypes.c_int
         lib._atropos_bound = True
@@ -169,16 +211,34 @@ class _DpKernel:
             return THREADS_PER_BLOCK, True
         return threads, False
 
+    def holds_strips(self, m, k, L):
+        """Whether the strips (64-bit kernel only) can serve (m, k, L): at
+        most 32 ``STRIP_ROWS`` rows and a payload that :func:`strip_layout`
+        fits in 32 bits."""
+        return (
+            self.word_bits == 64 and m <= 32 * STRIP_ROWS
+            and strip_layout(m, k, L) is not None
+        )
+
     def instantiation(self, m, k, L):
         """The :data:`Instantiation` that serves (m, k, L): the register
         column of the smallest row cap that holds m + 1 rows, where the
         cell's fields leave three bits to spare (the register body's 2-bit
         tie key and one bit for costs of up to 2k + 2 before its minimum);
-        else :meth:`block_layout`'s shared- or global-memory column."""
+        one warp a read in strips, where :meth:`holds_strips` and a 32-bit
+        cell cannot hold (m, k, L): every shape :class:`CudaAligner` sends
+        the 64-bit kernel. A shape that a 32-bit cell holds reaches it only
+        when a caller names this kernel (the card's grid of
+        configurations), and there one read a thread serves it as before:
+        at adapters of up to 64 bases on 32,768 reads the strips took
+        4.3-65x as long (PERF.md). Else :meth:`block_layout`'s shared- or
+        global-memory column."""
         if cell_layout(m, k, L, self.word_bits - 3) is not None:
             for cap in self.row_caps:
                 if m + 1 <= cap:
                     return Instantiation("registers", cap, REGISTER_THREADS)
+        if self.holds_strips(m, k, L) and cell_layout(m, k, L, 32) is None:
+            return Instantiation("warps", STRIP_ROWS, STRIP_THREADS)
         threads, global_col = self.block_layout(m)
         return Instantiation("global" if global_col else "shared", 0, threads)
 
@@ -217,12 +277,16 @@ class _DpKernel:
         )
 
     def launch(self, reads_T, lengths_row, ref_bytes, thresholds, how, *, m,
-               k, flags, min_overlap, ins_cost, del_cost, compare_ascii):
+               k, flags, min_overlap, ins_cost, del_cost, compare_ascii,
+               stats=None):
         """Launch the :data:`Instantiation` ``how`` on CUDA tensors: what a
         call does once it has picked ``how`` from the shape. A timing tool
         may name another instantiation that holds the shape (a wider row
-        cap, another block width); the wrapper or the kernel refuses one
-        that does not."""
+        cap, another block width, the strips or one read a thread where the
+        other serves); the wrapper or the kernel refuses one that does not.
+        ``stats``, a [3] int64 tensor on the card, gains the warp
+        instantiation's columns, fix-up rounds and fix-up row steps, summed
+        over its warps."""
         L, B = _check_inputs(reads_T, lengths_row, ref_bytes, thresholds, m)
         if B % 32:
             raise ValueError(
@@ -240,6 +304,17 @@ class _DpKernel:
                 "{}: the cell of (m={}, k={}, L={}) leaves no three bits to "
                 "spare for the register column".format(self.name, m, k, L)
             )
+        if how.kind == "warps":
+            if how.row_cap != STRIP_ROWS or not self.holds_strips(m, k, L):
+                raise ValueError(
+                    "{}: strips of {} rows a lane do not hold (m={}, k={}, "
+                    "L={})".format(self.name, how.row_cap, m, k, L)
+                )
+        if stats is not None and (
+            how.kind != "warps" or stats.dtype != torch.int64
+            or tuple(stats.shape) != (3,) or stats.device != reads_T.device
+        ):
+            raise ValueError("stats: a [3] int64 tensor, for the strips only")
         out = torch.empty((8, B), dtype=torch.int32, device=reads_T.device)
         col = None
         if how.kind == "global":
@@ -249,16 +324,17 @@ class _DpKernel:
                 device=reads_T.device,
             )
         ints = [L, B, m, k, flags, min_overlap, ins_cost, del_cost,
-                int(bool(compare_ascii)), layout[0], layout[1]]
-        if self.row_caps:
-            ints.append(how.row_cap)
+                int(bool(compare_ascii)), layout[0], layout[1], how.row_cap]
+        tail = []
+        if self.word_bits == 64:
+            tail.append(None if stats is None else stats.data_ptr())
         with torch.cuda.device(reads_T.device):
             stream = torch.cuda.current_stream().cuda_stream
             rc = getattr(_lib(), self.name)(
                 reads_T.data_ptr(), lengths_row.data_ptr(), out.data_ptr(),
                 ref_bytes.data_ptr(), thresholds.data_ptr(),
                 None if col is None else col.data_ptr(),
-                *ints, how.threads, stream,
+                *ints, how.threads, stream, *tail,
             )
         if rc != 0:
             raise RuntimeError(

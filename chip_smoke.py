@@ -21,10 +21,13 @@ object a line:
                 PyTorch DP on the card over a covering set of configurations
                 (indel costs 1, 2, 3 and 100000; adapters on both sides of
                 every row cap of ``dp_locate_word32``'s register column, 15,
-                16, 31, 32, 47, 48, 63 and 64 bases; adapters of 1,200 and
-                2,000 bases whose column lives in global memory): exact
-                equality of all result rows (tolerance 0, integers), and
-                which instantiation served each
+                16, 31, 32, 47, 48, 63 and 64 bases; 880-base adapters on
+                512 reads of 7,328 bases, which ``dp_locate_wide`` serves one
+                warp a read, with indel costs 1, 2, 3 and 100000 in both
+                compare modes; adapters of 1,200 and 2,000 bases whose column
+                lives in global memory): exact equality of all result rows
+                (tolerance 0, integers), which instantiation served each, and
+                the warp instantiation's fix-up rounds a column
 4. ``diag_grid``  ``diag_counts_u8`` and ``diag_counts_i32`` against their
                 plain version over windows up to 301 and two alphabets
 5. ``main_path``  a seeded FASTQ of 2,000,000 reads of 150 bases through
@@ -33,7 +36,8 @@ object a line:
 6. ``long_path``  a seeded FASTA of 8-kilobase reads against an 880-base
                 vector at 30 % errors through the same entry point; the cell
                 of this shape needs more than 32 bits, so this path launches
-                ``dp_locate_wide``
+                ``dp_locate_wide`` (one warp a read); the instantiation, its
+                lane-row slots and fix-up rounds
 7. ``pe_insert_path``  1,000,000 seeded read pairs of 2x150 (TruSeq
                 adapters after normal inserts of mean 220, and a near-poly-A
                 block) through ``trim --aligner insert -a AD1 -A AD2 -pe1 -pe2
@@ -70,7 +74,9 @@ object a line:
                 call that computes the same function where there is one (the
                 diagonal counts: a grouped ``conv1d`` over one-hot codes), and
                 for the DP kernels the instantiation that served the shape,
-                the cell updates and the warp-level row slots
+                the cell updates and the warp-level row slots (for one warp
+                a read: the lane-row slots, the columns and the fix-up
+                rounds of an instrumented launch)
 16. the last line: ``{"ok": true, "device": {...}}``
 
 Every path whose output the card makes also runs on ``--device cpu`` for a
@@ -97,31 +103,27 @@ from functools import lru_cache, partial
 import numpy as np
 import torch
 
-if not torch.cuda.is_available():
-    sys.stderr.write("chip_smoke: torch.cuda.is_available() is False\n")
-    sys.exit(1)
-
-from atropos_tpu_torch import runtime  # noqa: E402
-from atropos_tpu_torch.__main__ import main as port_main  # noqa: E402
-from atropos_tpu_torch.align import _build, cuda_kernel, insert_kernel  # noqa: E402
-from atropos_tpu_torch.align.batched import (  # noqa: E402
+from atropos_tpu_torch import runtime
+from atropos_tpu_torch.__main__ import main as port_main
+from atropos_tpu_torch.align import _build, cuda_kernel, insert_kernel
+from atropos_tpu_torch.align.batched import (
     _locate_kernel,
     insert_candidate_slots,
 )
-from atropos_tpu_torch.align.cuda_kernel import (  # noqa: E402
+from atropos_tpu_torch.align.cuda_kernel import (
     CudaAligner,
     dp_locate_wide,
     dp_locate_word32,
 )
-from atropos_tpu_torch.align.insert_kernel import (  # noqa: E402
+from atropos_tpu_torch.align.insert_kernel import (
     diag_counts_i32,
     diag_counts_u8,
 )
-from atropos_tpu_torch.commands import get_command  # noqa: E402
-from atropos_tpu_torch.commands import stats  # noqa: E402
-from atropos_tpu_torch.engine import turbo  # noqa: E402
-from atropos_tpu_torch.tools import dtype_probe  # noqa: E402
-from cuda_tools import sass_rows, timing  # noqa: E402
+from atropos_tpu_torch.commands import get_command
+from atropos_tpu_torch.commands import stats
+from atropos_tpu_torch.engine import turbo
+from atropos_tpu_torch.tools import dtype_probe
+from cuda_tools import sass_rows, timing
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRUSEQ = "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
@@ -153,6 +155,10 @@ BASES = np.frombuffer(b"ACGT", np.uint8)
 #: dp_locate_word32 without the register moves, by row cap: counted in
 #: phase_build from the SASS of the library it built
 REGISTER_OPS_PER_ROW = {}
+#: instructions a row of dp_locate_wide's strips, by rows a lane, from the
+#: same SASS (cuda_tools/sass_rows.py::strip_row_instructions): reported
+#: beside the strips' bound, which counts cuda_kernel.STRIP_OPS_PER_CELL
+STRIP_SASS_PER_ROW = {}
 
 
 def check(ok, message):
@@ -224,16 +230,20 @@ def phase_build():
         for line in results[name][0][1].splitlines()
         if "registers" in line or "Compiling entry" in line or "stack frame" in line
     ]
-    # dp_locate_word32's register instantiations keep the column in
-    # registers only if ptxas gave them no stack frame and no spills
+    # dp_locate_word32's register instantiations and dp_locate_wide's
+    # strips keep the column in registers only if ptxas gave them no stack
+    # frame and no spills
     register_frames = {}
     entry = None
     for line in ptxas:
         if "Compiling entry" in line:
             entry = line.split("'")[1]
-        elif "stack frame" in line and "reg_kernel" in (entry or ""):
+        elif "stack frame" in line and any(
+            key in (entry or "") for key in ("reg_kernel", "warp_kernel")
+        ):
             register_frames[entry] = line
-    check(len(register_frames) == len(cuda_kernel.ROW_CAPS), register_frames)
+    # (the strips twice: the timed launch and the instrumented one)
+    check(len(register_frames) == len(cuda_kernel.ROW_CAPS) + 2, register_frames)
     for entry, line in register_frames.items():
         check(line.startswith("0 bytes stack frame, 0 bytes spill stores"), (entry, line))
     # the register instantiations' operations a row, from the SASS just
@@ -241,6 +251,8 @@ def phase_build():
     listing = sass_rows.disassemble("dp_align")
     rows = {cap: sass_rows.row_instructions(listing, cap) for cap in cuda_kernel.ROW_CAPS}
     REGISTER_OPS_PER_ROW.update({cap: row["ops_per_row"] for cap, row in rows.items()})
+    strips = sass_rows.strip_row_instructions(listing, cuda_kernel.STRIP_ROWS)
+    STRIP_SASS_PER_ROW[cuda_kernel.STRIP_ROWS] = strips["instructions_per_row"]
     emit({
         "build": {
             "seconds": time.perf_counter() - began,
@@ -253,6 +265,9 @@ def phase_build():
                     "group_rows", "instructions_per_row", "moves_per_row", "ops_per_row")}
                 for cap, row in rows.items()
             },
+            "strip_rows": {key: strips[key] for key in (
+                "strip_rows", "column_loop_instructions", "walk_instructions",
+                "instructions_per_row", "shuffles")},
         }
     })
 
@@ -402,7 +417,18 @@ def grid_configs():
     for m in ROW_CAP_MS:
         modes = {c["iupac"] for c in row_caps if c["m"] == m}
         check(modes == {False, True}, ("both compare modes", m, modes))
-    return configs + row_caps
+    # dp_locate_wide's strips where the insertion can win (k = 264), so
+    # that the fix-up across lanes runs where only the 64-bit kernel serves
+    strips = [
+        dict(idx=44 + len(row_caps) + i, flag_name=name, flags=flags, place=place,
+             iupac=iupac, indel_cost=cost, e=0.3, m=880, L=7328, B=512)
+        for i, (cost, iupac, (name, flags, place)) in enumerate(
+            (cost, iupac, flag_sets[(2 * c + iupac) % 5])
+            for c, cost in enumerate((1, 2, 3))
+            for iupac in (False, True)
+        )
+    ]
+    return configs + row_caps + strips
 
 
 def make_adapter(rng, m, iupac):
@@ -416,12 +442,34 @@ def make_adapter(rng, m, iupac):
     return adapter.tobytes().decode("ascii")
 
 
+def instantiation_key(how):
+    return "{} {}".format(how.kind, how.row_cap) if how.row_cap else how.kind
+
+
+def strip_counts(aligner, reads_T, lens):
+    """One instrumented launch of ``dp_locate_wide``'s warp instantiation:
+    its columns, fix-up rounds and fix-up row steps, summed over the warps,
+    the mean rounds a column, and the lane-row slots (32 lanes times the
+    rows a lane walks: R a column, and one a fix-up row step)."""
+    how = dp_locate_wide.instantiation(aligner.m, aligner.k, reads_T.shape[0])
+    check(how.kind == "warps", how)
+    stats = torch.zeros(3, dtype=torch.int64, device=DEVICE)
+    dp_locate_wide.launch(reads_T, lens, aligner.ref_bytes, aligner.thresholds, how,
+                          stats=stats, **aligner._dp_params())
+    columns, rounds, fix_rows = (int(x) for x in stats.cpu())
+    return dict(columns=columns, fix_up_rounds=rounds, fix_up_row_steps=fix_rows,
+                mean_rounds_per_column=rounds / max(columns, 1),
+                lane_row_slots=32 * (how.row_cap * columns + fix_rows))
+
+
 def phase_grid(seed):
     began = time.perf_counter()
     compared = {"dp_locate_word32": 0, "dp_locate_wide": 0}
     max_err = {"dp_locate_word32": 0, "dp_locate_wide": 0}
     global_column = {}
     served = {}  # dp_locate_word32's instantiations: configurations each served
+    served_wide = {}  # dp_locate_wide's
+    rounds = {}  # the strips' fix-up rounds, by configuration
     found_total = 0
     for cfg in grid_configs():
         rng = np.random.default_rng([seed, 1, cfg["idx"]])
@@ -445,9 +493,17 @@ def phase_grid(seed):
         else:
             kernels.append(dp_locate_wide)
         if fits32:
-            how = dp_locate_word32.instantiation(cfg["m"], aligner.k, cfg["L"])
-            key = "{} {}".format(how.kind, how.row_cap) if how.row_cap else how.kind
+            key = instantiation_key(
+                dp_locate_word32.instantiation(cfg["m"], aligner.k, cfg["L"]))
             served[key] = served.get(key, 0) + 1
+        if dp_locate_wide in kernels:
+            wide_how = dp_locate_wide.instantiation(cfg["m"], aligner.k, cfg["L"])
+            key = instantiation_key(wide_how)
+            served_wide[key] = served_wide.get(key, 0) + 1
+            if wide_how.kind == "warps":
+                rounds[cfg["idx"]] = dict(
+                    m=cfg["m"], indel_cost=cfg["indel_cost"], iupac=cfg["iupac"],
+                    **strip_counts(aligner, reads_T, lens))
         for kernel in kernels:
             got = kernel(reads_T, lens, aligner.ref_bytes, aligner.thresholds, **params)
             torch.cuda.synchronize()
@@ -464,7 +520,8 @@ def phase_grid(seed):
             if cfg.get("big"):
                 # the shape the wrapper once refused: its column now lives
                 # in global memory, and it is timed there for PERF.md
-                check(kernel.block_layout(cfg["m"])[1], (kernel.name, "global column", cfg))
+                how = kernel.instantiation(cfg["m"], aligner.k, cfg["L"])
+                check(how.kind == "global", (kernel.name, "global column", cfg, how))
                 global_column[kernel.name] = time_kernel(
                     kernel, aligner, reads_T, lens, launches=5
                 )
@@ -476,12 +533,18 @@ def phase_grid(seed):
     check(sorted(global_column) == ["dp_locate_wide", "dp_locate_word32"], global_column)
     for key in ["registers {}".format(cap) for cap in cuda_kernel.ROW_CAPS] + ["shared"]:
         check(served.get(key, 0) >= 2, ("dp_locate_word32 instantiation", key, served))
+    for key in ["warps {}".format(cuda_kernel.STRIP_ROWS), "global"]:
+        check(served_wide.get(key, 0) >= 1, ("dp_locate_wide instantiation", key, served_wide))
+    check(rounds and all(r["fix_up_rounds"] >= r["columns"] > 0 for r in rounds.values()),
+          rounds)
     check(found_total > 0, 'found_total > 0')
     emit({
         "grid": {
             "configurations": len(grid_configs()),
             "compared": compared,
             "dp_locate_word32_instantiations": served,
+            "dp_locate_wide_instantiations": served_wide,
+            "strip_rounds": rounds,
             "reads_with_a_match": found_total,
             "tolerance": 0,
             "seconds": time.perf_counter() - began,
@@ -497,10 +560,14 @@ def time_kernel(kernel, aligner, reads_T, lens, launches=20):
     the kernel alone), the plain version's time, the instantiation that
     served the shape, and the bound for the cells these reads need: at the
     operations a cell of that instantiation takes (a register
-    instantiation's from its SASS, :data:`REGISTER_OPS_PER_ROW`; else
-    ``dp_body``'s 24), and beside it at 24. Also the warp-level row slots:
-    the lanes a warp occupies when it runs each column down to its reads'
-    deepest band."""
+    instantiation's from its SASS, :data:`REGISTER_OPS_PER_ROW`; the
+    strips' two-plane rule, ``STRIP_OPS_PER_CELL``; else ``dp_body``'s 24),
+    and beside it at 24, the yardstick of the strips' predecessor.
+    Also the work the instantiation's layout does: the warp-level row slots
+    of one read a thread (the lanes a warp occupies when it runs each column
+    down to its reads' deepest band), or for one warp a read the lane-row
+    slots and fix-up rounds of an instrumented launch (:func:`strip_counts`)
+    beside the SASS instructions a strip row takes."""
     params = aligner._dp_params()
     args = (reads_T, lens, aligner.ref_bytes, aligner.thresholds)
     times, out = device_times(lambda: kernel(*args, **params), launches)
@@ -514,10 +581,17 @@ def time_kernel(kernel, aligner, reads_T, lens, launches=20):
     props = torch.cuda.get_device_properties(0)
     clock_hz = sm_clock_mhz() * 1e6
     how = kernel.instantiation(aligner.m, aligner.k, L)
-    ops_per_cell = (
-        REGISTER_OPS_PER_ROW[how.row_cap] if how.kind == "registers"
-        else cuda_kernel.OPS_PER_CELL
-    )
+    if how.kind == "registers":
+        ops_per_cell = REGISTER_OPS_PER_ROW[how.row_cap]
+    elif how.kind == "warps":
+        ops_per_cell = cuda_kernel.STRIP_OPS_PER_CELL
+    else:
+        ops_per_cell = cuda_kernel.OPS_PER_CELL
+    if how.kind == "warps":
+        work = dict(strip_counts(aligner, reads_T, lens),
+                    strip_sass_per_row=STRIP_SASS_PER_ROW[how.row_cap])
+    else:
+        work = dict(warp_row_slots=int(row_slots))
     ops_rate = props.multi_processor_count * INT_OPS_PER_SM_CLOCK * clock_hz
     ops_ms = int(cells) * ops_per_cell / ops_rate * 1e3
     bytes_ms = (L * B + 4 * B + 32 * B) / HBM_BYTES_PER_SECOND * 1e3
@@ -535,7 +609,7 @@ def time_kernel(kernel, aligner, reads_T, lens, launches=20):
         bound_ms_at_24_ops=max(int(cells) * cuda_kernel.OPS_PER_CELL / ops_rate * 1e3, bytes_ms),
         shape=dict(m=aligner.m, k=aligner.k, L=L, B=B),
         cell_updates=int(cells),
-        warp_row_slots=int(row_slots),
+        **work,
         full_matrix_cells=L * B * (aligner.m + 1),
         sm_count=props.multi_processor_count,
         sm_clock_mhz=clock_hz / 1e6,
@@ -893,26 +967,60 @@ def truseq_batch(fastq):
     return reads, chunk.seq_len.astype(np.int32)
 
 
-def phase_long_path(work, seed):
-    """8-kilobase reads against an 880-base vector at 30 % errors without
-    indels: matches 10 bits, origin 14 bits, cost 9 bits, so the cell needs
-    33 bits and the lane's aligner picks ``dp_locate_wide``."""
+LONG_M, LONG_READS = 880, 1024
+
+
+def write_long_fasta(path, seed):
+    """The long path's input: 1,024 reads of 6,000-7,312 bases, every other
+    one carrying an exact copy of an 880-base vector. Returns the vector,
+    the read lengths and where each copy starts (-1: none)."""
     rng = np.random.default_rng([seed, 3])
-    m, n_reads = 880, 1024
+    m, n_reads = LONG_M, LONG_READS
     vector = BASES[rng.integers(0, 4, m)].tobytes().decode("ascii")
     lengths = rng.integers(6000, 7300, n_reads)
     # the FASTA stream hands over the last record as a batch of its own:
     # both batches are as wide as the longest read
     lengths[0] = lengths[-1] = 7312
-    fasta = os.path.join(work, "long.fasta")
     starts = np.full(n_reads, -1, np.int64)
-    with open(fasta, "w") as out:
+    with open(path, "w") as out:
         for i in range(n_reads):
             seq = BASES[rng.integers(0, 4, int(lengths[i]))]
             if i % 2:
                 starts[i] = int(rng.integers(100, lengths[i] - m))
                 seq[starts[i] : starts[i] + m] = np.frombuffer(vector.encode(), np.uint8)
             out.write(">long{}\n{}\n".format(i, seq.tobytes().decode("ascii")))
+    return vector, lengths, starts
+
+
+def long_batch(fasta, vector):
+    """The long path's reads as one batch the way the lane hands them to the
+    kernel, and the aligner: (aligner, reads_T, lens)."""
+    with open(fasta, "rb") as handle:
+        chunk = runtime.parse_fasta_chunk(handle.read(), final=True)
+    width = -(-int(chunk.seq_len.max()) // 32) * 32
+    aligner = CudaAligner(vector, 0.3, BACK, min_overlap=3, indel_cost=100000, device=DEVICE)
+    check(
+        aligner.kernel_for(width) is dp_locate_wide,
+        'aligner.kernel_for(width) is dp_locate_wide',
+    )
+    check(
+        not dp_locate_word32.fits(LONG_M, aligner.k, width),
+        'not dp_locate_word32.fits(LONG_M, aligner.k, width)',
+    )
+    reads_T, lens = device_inputs(
+        aligner, chunk.padded_sequences(width), chunk.seq_len.astype(np.int32)
+    )
+    return aligner, reads_T, lens
+
+
+def phase_long_path(work, seed):
+    """8-kilobase reads against an 880-base vector at 30 % errors without
+    indels: matches 10 bits, origin 14 bits, cost 9 bits, so the cell needs
+    33 bits and the lane's aligner picks ``dp_locate_wide``, which serves
+    this batch one warp a read."""
+    fasta = os.path.join(work, "long.fasta")
+    vector, lengths, starts = write_long_fasta(fasta, seed)
+    n_reads = LONG_READS
     trimmed = os.path.join(work, "long_trimmed.fasta")
     argv = ["trim", "-a", vector, "-e", "0.3", "--no-indels", "-se", fasta, "-o", trimmed,
             "--quiet", "--no-cache-adapters", "--report-file", os.path.join(work, "report2.txt")]
@@ -925,32 +1033,24 @@ def phase_long_path(work, seed):
     has = starts >= 0
     check(np.array_equal(out_len[has], starts[has]), "a planted vector was not cut at its offset")
     check(np.all(out_len[~has] <= lengths[~has]), 'np.all(out_len[~has] <= lengths[~has])')
+
+    # the same batch as the lane hands it to the kernel, for the timing
+    aligner, reads_T, lens = long_batch(fasta, vector)
+    timing = time_kernel(dp_locate_wide, aligner, reads_T, lens, launches=20)
+    check(timing["instantiation"]["kind"] == "warps", timing["instantiation"])
     emit({
         "long_path": {
             "argv": "trim -a VECTOR880 -e 0.3 --no-indels -se long.fasta -o long_trimmed.fasta",
-            "reads": n_reads, "read_length": "6000-7312", "adapter_length": m,
+            "reads": n_reads, "read_length": "6000-7312", "adapter_length": LONG_M,
             "seconds": seconds, "batches": run["batches"], "launches": counts,
             "vectors_checked": int(has.sum()),
+            "instantiation": timing["instantiation"],
+            **{key: timing[key] for key in (
+                "columns", "fix_up_rounds", "mean_rounds_per_column", "fix_up_row_steps",
+                "lane_row_slots", "cell_updates")},
         }
     })
-
-    # the same batch as the lane hands it to the kernel, for the timing
-    with open(fasta, "rb") as handle:
-        chunk = runtime.parse_fasta_chunk(handle.read(), final=True)
-    width = -(-int(chunk.seq_len.max()) // 32) * 32
-    aligner = CudaAligner(vector, 0.3, BACK, min_overlap=3, indel_cost=100000, device=DEVICE)
-    check(
-        aligner.kernel_for(width) is dp_locate_wide,
-        'aligner.kernel_for(width) is dp_locate_wide',
-    )
-    check(
-        not dp_locate_word32.fits(m, aligner.k, width),
-        'not dp_locate_word32.fits(m, aligner.k, width)',
-    )
-    reads_T, lens = device_inputs(
-        aligner, chunk.padded_sequences(width), chunk.seq_len.astype(np.int32)
-    )
-    return launches, time_kernel(dp_locate_wide, aligner, reads_T, lens, launches=20)
+    return launches, timing
 
 
 # -- the paired-end paths ----------------------------------------------------------
@@ -1641,6 +1741,9 @@ def phase_goldens(work):
 
 
 def main():
+    if not torch.cuda.is_available():
+        sys.stderr.write("chip_smoke: torch.cuda.is_available() is False\n")
+        sys.exit(1)
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=20240229)
     parser.add_argument("--reads", type=int, default=2000000,

@@ -1,4 +1,5 @@
-"""Count the instructions of one row of ``dp_body_reg``'s column loop.
+"""Count the instructions of one row of ``dp_body_reg``'s column loop, and
+of a row of ``dp_body_warp``'s strips.
 
 Run from the root of a checkout on a machine with the CUDA toolkit, after
 the DP kernels were built::
@@ -7,7 +8,8 @@ the DP kernels were built::
 
 ``chip_smoke.py`` runs :func:`row_instructions` on the library it has just
 built, for every row cap, and bounds the register instantiations by
-``ops_per_row``.
+``ops_per_row``; and :func:`strip_row_instructions`, whose count it
+reports beside the strips' bound.
 
 It disassembles ``build/libdp_align.so`` with ``cuobjdump -sass`` (or
 reads a saved listing given with ``--sass FILE``), takes the register
@@ -31,7 +33,7 @@ import re
 import subprocess
 import sys
 
-from atropos_tpu_torch.align import _build
+from atropos_tpu_torch.align import _build, cuda_kernel
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BRANCH = re.compile(r"^(@!?U?P\w+\s+)?BRA\s+(?:`\(\.L_x_\d+\)|0x([0-9a-f]+))")
@@ -91,6 +93,36 @@ def row_instructions(listing, row_cap):
     )
 
 
+def strip_row_instructions(listing, rows):
+    """Instructions a row of ``dp_body_warp``, ``rows`` rows a lane, in the
+    timed (not the instrumented) launch: the column loop (the longest
+    backward branch of the warp kernel) from its
+    head to its first vote (``VOTE.ANY``, the fix-up's first) is one
+    straight run, the column's set-up and its ``rows`` rows of the
+    speculative walk; that count over ``rows``. Also the whole loop body's
+    count, the fix-up rounds' unrolled rows and the rare row-m branch
+    included."""
+    key = "warp_kernelILb0E"
+    (name,) = [n for n in functions(listing) if key in n]
+    insns = functions(listing)[name]
+    index = {address: i for i, (address, _) in enumerate(insns)}
+    loops = []
+    for i, (address, text) in enumerate(insns):
+        match = _BRANCH.match(text)
+        if match and match.group(2):
+            target = int(match.group(2), 16)
+            if target < address and target in index:
+                loops.append((index[target], i))
+    head, tail = max(loops, key=lambda loop: loop[1] - loop[0])
+    votes = [i for i in range(head, tail) if "VOTE.ANY" in insns[i][1]]
+    walk = votes[0] - head
+    return dict(
+        function=name, strip_rows=rows, column_loop_instructions=tail + 1 - head,
+        walk_instructions=walk, instructions_per_row=walk / rows,
+        shuffles=sum(1 for _, text in insns[head:votes[0]] if "SHFL" in text),
+    )
+
+
 def disassemble(name):
     """The ``cuobjdump -sass`` listing of the built library ``name``."""
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -111,6 +143,7 @@ def main(argv=None):
     else:
         listing = disassemble("dp_align")
     print(json.dumps(row_instructions(listing, args.row_cap)))
+    print(json.dumps(strip_row_instructions(listing, cuda_kernel.STRIP_ROWS)))
     return 0
 
 

@@ -138,6 +138,106 @@ def test_register_column_equals_plain_version(card, m, flags):
     assert int(expected[0].sum()) > 0
 
 
+#: adapter lengths on both sides of the boundary of dp_locate_wide's strips
+#: of 28 rows a lane: m + 1 = 32 R - 1, 32 R and 32 R + 1 (row m the last
+#: but one, the last row of lane 31, and itself the last row of all)
+STRIP_MS = (894, 895, 896)
+
+
+@pytest.mark.parametrize("flags", FLAG_SETS)
+@pytest.mark.parametrize("m", STRIP_MS)
+def test_strips_equal_plain_version(card, m, flags):
+    """dp_locate_wide one warp a read against the plain version: every flag
+    set, indel costs 1, 2, 3 and 100000 and both compare modes in turn, on
+    128 reads of up to 1,856 bases. A 32-bit cell holds these shapes, so a
+    call would take one read a thread; the test names the strips."""
+    import torch
+
+    from atropos_tpu_torch.align import cuda_kernel
+
+    i = STRIP_MS.index(m) + FLAG_SETS.index(flags)
+    indel_cost = (1, 2, 3, 100000)[i % 4]
+    e = {1: 0.3, 2: 0.2, 3: 0.3, 100000: (0.3, 0.1)[i % 2]}[indel_cost]
+    wild = bool((STRIP_MS.index(m) + i) % 2)
+    L = 2 * m + 64
+    rng = np.random.default_rng(m * 16 + flags)
+    letters = np.frombuffer(b"ACGTNRY" if wild else b"ACGT", np.uint8)
+    adapter = letters[rng.integers(0, len(letters), m)].tobytes().decode()
+    kernel = cuda_kernel.dp_locate_wide
+    aligner = cuda_kernel.CudaAligner(
+        adapter, e, flags, wildcard_ref=wild, min_overlap=3,
+        indel_cost=indel_cost, device=card,
+    )
+    # past one warp's shared column: one read a thread works in global memory
+    assert kernel.instantiation(m, aligner.k, L).kind == "global"
+    assert kernel.holds_strips(m, aligner.k, L)
+    how = cuda_kernel.Instantiation("warps", cuda_kernel.STRIP_ROWS, cuda_kernel.STRIP_THREADS)
+    planted = adapter.translate(str.maketrans("NRY", "AAC"))
+    reads, lengths = _batch(m + flags, 128, L, planted, flags)
+    if flags in (8, 2):
+        # an anchored adapter matches whole: every fourth read carries it
+        whole = np.frombuffer(planted.encode(), np.uint8)
+        for row in range(3, 128, 4):
+            at = 0 if flags == 8 else int(lengths[row]) - m
+            if lengths[row] >= m:
+                reads[row, at : at + m] = whole
+    dev = torch.from_numpy(reads).to(card)
+    if not aligner._compare_ascii:
+        dev = aligner.query_lut[dev.long()]
+    reads_T = dev.T.contiguous()
+    lens = torch.from_numpy(lengths).to(card)[None, :].contiguous()
+    args = (reads_T, lens, aligner.ref_bytes, aligner.thresholds)
+    before = kernel.launches
+    got = kernel.launch(*args, how, **aligner._dp_params())
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    expected = kernel.plain(*args, **aligner._dp_params())
+    assert torch.equal(got, expected)
+    assert int(expected[0].sum()) > 0
+
+
+def test_strips_fix_up_crosses_lanes(card):
+    """Reads that lack 90 bases of an 880-base adapter, none of which
+    matches the read base before the gap: in the column after it rows
+    401-490 follow one another by insertions, across lanes 14-17 of the
+    strips. The fix-up then takes more than one round in some columns
+    (the instrumented launch's counts), and the result equals the plain
+    version's."""
+    import torch
+
+    from atropos_tpu_torch.align import cuda_kernel
+
+    rng = np.random.default_rng(90)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    ad = bases[rng.integers(0, 4, 880)].copy()
+    ad[399] = ord("A")
+    ad[400:490] = np.frombuffer(b"CGT", np.uint8)[rng.integers(0, 3, 90)]
+    adapter = ad.tobytes().decode()
+    B, L = 64, 1024
+    reads = bases[rng.integers(0, 4, (B, L))].copy()
+    gapped = np.frombuffer((adapter[:400] + adapter[490:]).encode(), np.uint8)
+    for row in range(B):
+        at = 20 + row
+        reads[row, at : at + len(gapped)] = gapped[: L - at]
+    lengths = np.full(B, L, np.int32)
+    kernel = cuda_kernel.dp_locate_wide
+    aligner = cuda_kernel.CudaAligner(adapter, 0.3, 14, min_overlap=3, indel_cost=1,
+                                      device=card)
+    reads_T = torch.from_numpy(reads).to(card).T.contiguous()
+    lens = torch.from_numpy(lengths).to(card)[None, :].contiguous()
+    args = (reads_T, lens, aligner.ref_bytes, aligner.thresholds)
+    # a 32-bit cell holds this shape: the test names the strips
+    assert kernel.holds_strips(880, aligner.k, L)
+    how = cuda_kernel.Instantiation("warps", cuda_kernel.STRIP_ROWS, cuda_kernel.STRIP_THREADS)
+    stats = torch.zeros(3, dtype=torch.int64, device=card)
+    got = kernel.launch(*args, how, stats=stats, **aligner._dp_params())
+    expected = kernel.plain(*args, **aligner._dp_params())
+    assert torch.equal(got, expected)
+    assert expected[6].tolist() == [90] * B  # the gap is the cost
+    columns, rounds, fix_rows = stats.tolist()
+    assert rounds > columns > 0 and fix_rows > 0, stats.tolist()
+
+
 @pytest.mark.parametrize("kernel_name,m,e,L,indel_cost", [
     ("dp_locate_wide", 1200, 0.3, 3072, 100000),
     ("dp_locate_word32", 2000, 0.1, 2048, 100000),
@@ -159,6 +259,7 @@ def test_adapter_beyond_shared_memory(card, kernel_name, m, e, L, indel_cost):
     )
     assert aligner.kernel_for(L) is kernel
     assert kernel.block_layout(m) == (cuda_kernel.THREADS_PER_BLOCK, True)
+    assert kernel.instantiation(m, aligner.k, L).kind == "global"
     reads, lengths = _batch(m, 128, L, adapter, 15)
     reads_T = torch.from_numpy(reads).to(card).T.contiguous()
     lens = torch.from_numpy(lengths).to(card)[None, :].contiguous()

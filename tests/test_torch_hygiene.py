@@ -79,6 +79,9 @@ def test_sources_exist():
         "atropos_tpu_torch/csrc/dtype_probe.cu",
         "atropos_tpu_torch/tools/dtype_probe.py",
         "cuda_tools/timing.py",
+        "cuda_tools/dp_compare.py",
+        "cuda_tools/sass_rows.py",
+        "cuda_tools/plain_compare.py",
         "atropos_tpu_torch/engine/turbo.py",
         "atropos_tpu_torch/runtime/fastq.cpp",
     ):
