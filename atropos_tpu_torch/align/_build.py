@@ -66,19 +66,24 @@ def build(name, verbose=False):
     return out, done.stdout + done.stderr
 
 
+def _sources_mtime(name):
+    """The newest modification time of ``csrc/<name>.cu`` and the headers
+    of ``csrc`` it may include."""
+    headers = [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".h")]
+    return max(os.path.getmtime(p) for p in [os.path.join(CSRC_DIR, name + ".cu")] + headers)
+
+
 def load(name):
     """The ``ctypes`` library of ``csrc/<name>.cu``, built on first use
-    (and again when the source is newer than the library)."""
+    (and again when the source or a header of ``csrc`` is newer than the
+    library)."""
     lib = _libs.get(name)
     if lib is None:
         with _lock:
             lib = _libs.get(name)
             if lib is None:
-                src = os.path.join(CSRC_DIR, name + ".cu")
                 path = library_path(name)
-                if not os.path.exists(path) or os.path.getmtime(
-                    path
-                ) < os.path.getmtime(src):
+                if not os.path.exists(path) or os.path.getmtime(path) < _sources_mtime(name):
                     build(name)
                 lib = ctypes.CDLL(path)
                 _libs[name] = lib

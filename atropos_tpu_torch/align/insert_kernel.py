@@ -3,8 +3,10 @@ wrappers.
 
 Counterpart of ``atropos_tpu/align/pallas_kernel.py::PallasPackedInsertMatcher``
 and ``PallasInsertMatcher``. The two Pallas diagonal-count kernels each have
-a hand-written Hopper kernel in ``csrc/diag_counts.cu`` (see the note at its
-top for what bounds them and what the design does about it):
+a hand-written Hopper kernel in ``csrc/diag_counts.cu``, which packs each
+pair's windows into bit planes of 32 positions a word and counts a
+diagonal's matches a word at a time (see the note at its top for what
+bounds them and what the design does about it):
 
 ===================  ===========================================  ==========
 wrapper              replaces                                     counts
@@ -41,6 +43,17 @@ _LIB_NAME = "diag_counts"
 #: its sentinels) and counts at most 255 positions (one byte)
 PACKED_MAX_SYMBOLS = 14
 PACKED_MAX_W = 255
+
+#: operations one 32-position word of one diagonal needs by the kernels'
+#: bit-plane rule (``csrc/diag_counts.cu::count_pair``): 8 funnel shifts of
+#: the ref planes, 8 LOP3s folding ``query_p ^ ref_p`` into the mismatch
+#: word, 1 popcount and 1 add
+WORD_OPS = 18
+#: operations a diagonal needs beside its words: the mask of the positions
+#: past its end, on its last word (the kernels mask every word, a cost of
+#: their design, not of the rule). The bound of both kernels counts the
+#: words and diagonals the lengths need at these operations each.
+DIAGONAL_OPS = 1
 
 
 def _lib():

@@ -133,9 +133,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <map>
-#include <mutex>
-#include <utility>
+#include "shared_limit.h"
 
 namespace {
 
@@ -1024,24 +1022,6 @@ __global__ void dp_locate_wide_warp_kernel(
     const DpParams p)
 {
     dp_body_warp<STRIP_ROWS, STATS>(reads, lengths, out, ref, thr, stats, p);
-}
-
-// Raise a kernel's dynamic shared-memory limit on the current device once,
-// to the largest size a launch has asked for, instead of on every launch.
-cudaError_t allow_shared_bytes(const void* kernel, size_t bytes)
-{
-    static std::mutex lock;
-    static std::map<std::pair<const void*, int>, size_t> allowed;
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err != cudaSuccess) return err;
-    std::lock_guard<std::mutex> guard(lock);
-    size_t& have = allowed[std::make_pair(kernel, device)];
-    if (bytes <= have) return cudaSuccess;
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err == cudaSuccess) have = bytes;
-    return err;
 }
 
 // col == nullptr: the shared-memory instantiation of dp_body; else the

@@ -29,7 +29,11 @@ object a line:
                 (tolerance 0, integers), which instantiation served each, and
                 the warp instantiation's fix-up rounds a column
 4. ``diag_grid``  ``diag_counts_u8`` and ``diag_counts_i32`` against their
-                plain version over windows up to 301 and two alphabets
+                plain version over windows of 31 to 512 (both sides of
+                each 32-position word edge) and of 1,500 and 3,000 (cut
+                into slabs), three alphabets (every byte value among
+                them), lengths up to 2W (where the plain version wraps)
+                and batches of 32,768, 32,767, 4,096 and 4,095 pairs
 5. ``main_path``  a seeded FASTQ of 2,000,000 reads of 150 bases through
                 ``python -m atropos_tpu_torch trim -a TRUSEQ -se IN -o OUT`` on
                 ``cuda``; this path launches ``dp_locate_word32``
@@ -76,7 +80,12 @@ object a line:
                 for the DP kernels the instantiation that served the shape,
                 the cell updates and the warp-level row slots (for one warp
                 a read: the lane-row slots, the columns and the fix-up
-                rounds of an instrumented launch)
+                rounds of an instrumented launch); for the diagonal counts
+                the position compares, the 32-position words of their bit
+                planes and the live diagonals, the bytes, and the bound at
+                one operation a compare beside the bound at
+                ``insert_kernel.WORD_OPS`` a word and
+                ``insert_kernel.DIAGONAL_OPS`` a diagonal
 16. the last line: ``{"ok": true, "device": {...}}``
 
 Every path whose output the card makes also runs on ``--device cpu`` for a
@@ -93,7 +102,6 @@ import argparse
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import threading
@@ -171,18 +179,10 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def smi(query):
-    done = subprocess.run(
-        ["nvidia-smi", "--query-gpu=" + query, "--format=csv,noheader", "-i", "0"],
-        capture_output=True, text=True, check=True,
-    )
-    return done.stdout.strip().splitlines()[0]
-
-
 @lru_cache(maxsize=None)
 def sm_clock_mhz():
     """The card's largest SM clock."""
-    return float(smi("clocks.max.sm").split()[0])
+    return float(timing.smi("clocks.max.sm").split()[0])
 
 
 def device_times(fn, launches, queued=True):
@@ -231,9 +231,10 @@ def phase_build():
         if "registers" in line or "Compiling entry" in line or "stack frame" in line
     ]
     # dp_locate_word32's register instantiations and dp_locate_wide's
-    # strips keep the column in registers only if ptxas gave them no stack
-    # frame and no spills
-    register_frames = {}
+    # strips keep the column in registers, and the diagonal-count kernels
+    # their query words, only if ptxas gave them no stack frame and no
+    # spills
+    register_frames, diag_frames = {}, {}
     entry = None
     for line in ptxas:
         if "Compiling entry" in line:
@@ -242,9 +243,13 @@ def phase_build():
             key in (entry or "") for key in ("reg_kernel", "warp_kernel")
         ):
             register_frames[entry] = line
+        elif "stack frame" in line and "diag_counts" in (entry or ""):
+            diag_frames[entry] = line
     # (the strips twice: the timed launch and the instrumented one)
     check(len(register_frames) == len(cuda_kernel.ROW_CAPS) + 2, register_frames)
-    for entry, line in register_frames.items():
+    # (the 32-bit counts twice: one slab, and slabs for the largest windows)
+    check(len(diag_frames) == 3, diag_frames)
+    for entry, line in {**register_frames, **diag_frames}.items():
         check(line.startswith("0 bytes stack frame, 0 bytes spill stores"), (entry, line))
     # the register instantiations' operations a row, from the SASS just
     # built: a row's instructions without the moves of the unrolled column
@@ -618,27 +623,54 @@ def time_kernel(kernel, aligner, reads_T, lens, launches=20):
 
 # -- the diagonal-count kernels against their plain version ---------------------
 
-#: (kernel, window, alphabet): the windows each kernel serves on the paired
-#: paths and around their edges; the 32-bit kernel also with more than 14
-#: symbols, the alphabets that the 8-bit kernel's TPU counterpart refuses
+ACGTN = b"ACGTN"
+MANY_SYMBOLS = b"ACGTNRYKMSWBDHVacgtn"  # more than the packed TPU kernel's 14
+ALL_BYTES = bytes(range(256))  # the 8-bit wrapper takes any byte, as the 32-bit one
+
+#: (kernel, window, alphabet, lengths, pairs): the windows each kernel
+#: serves on the paired paths and around their edges; the 32-bit kernel
+#: also with more than 14 symbols, the alphabets that the 8-bit kernel's
+#: TPU counterpart refuses. For the kernels' bit planes of 32 positions a
+#: word: windows on both sides of each word edge, every byte value,
+#: lengths past W ("wrap": m_b in (W, 2W], where the plain version wraps),
+#: and batches that are no multiple of the 32-pair tile; windows of 1,500
+#: and 3,000, which the 32-bit kernel cuts into slabs. Lengths "within"
+#: are m_b in [0, W].
 DIAG_GRID = (
-    [(diag_counts_u8, W, b"ACGTN") for W in (33, 64, 100, 150, 255)]
-    + [(diag_counts_u8, 160, b"ACGTNacgtnRYKM")]
-    + [(diag_counts_i32, W, alphabet)
+    [(diag_counts_u8, W, ACGTN, "within", 32768) for W in (33, 64, 100, 150, 255)]
+    + [(diag_counts_u8, 160, b"ACGTNacgtnRYKM", "within", 32768)]
+    + [(diag_counts_i32, W, alphabet, "within", 32768)
        for W in (64, 255, 256, 300, 301)
-       for alphabet in (b"ACGTN", b"ACGTNRYKMSWBDHVacgtn")]
+       for alphabet in (ACGTN, MANY_SYMBOLS)]
+    + [(diag_counts_u8, W, ACGTN, "within", 32768) for W in (31, 32, 63, 65, 96, 97)]
+    + [(diag_counts_i32, W, ACGTN, "within", 32768) for W in (288, 289, 320, 512)]
+    + [(diag_counts_u8, 160, ALL_BYTES, "within", 32767),
+       (diag_counts_u8, 255, ALL_BYTES, "within", 32768),
+       (diag_counts_i32, 289, ALL_BYTES, "within", 32768),
+       (diag_counts_i32, 320, ALL_BYTES, "within", 32767),
+       (diag_counts_u8, 150, ALL_BYTES, "wrap", 32768),
+       (diag_counts_u8, 97, ACGTN, "wrap", 32767),
+       (diag_counts_i32, 300, ALL_BYTES, "wrap", 32768),
+       (diag_counts_i32, 64, MANY_SYMBOLS, "wrap", 32767),
+       (diag_counts_i32, 1500, ALL_BYTES, "within", 4096),
+       (diag_counts_i32, 3000, ACGTN, "wrap", 4095)]
 )
 
 
-def diag_batch(rng, W, B, alphabet):
+def diag_batch(rng, W, B, alphabet, lengths="within"):
     """[W, B] uint8 ref and query planes and [B] int32 lengths, random in
-    [0, W] (0 and W included); in a quarter of the pairs the query is the
-    ref read from a random diagonal on, with 5 % of its bytes replaced."""
+    [0, W] (0 and W included) or, for ``"wrap"``, in (W, 2W] (2W, W + 1
+    and a 0 included); in a quarter of the pairs the query is the ref read
+    from a random diagonal on, with 5 % of its bytes replaced."""
     syms = np.frombuffer(alphabet, np.uint8)
     ref = syms[rng.integers(0, len(syms), (B, W))]
     query = syms[rng.integers(0, len(syms), (B, W))]
-    lengths = rng.integers(0, W + 1, B)
-    lengths[:3] = (0, W, 1)
+    if lengths == "wrap":
+        m = rng.integers(W + 1, 2 * W + 1, B)
+        m[:3] = (2 * W, W + 1, 0)
+    else:
+        m = rng.integers(0, W + 1, B)
+        m[:3] = (0, W, 1)
     shift = rng.integers(0, W, B)[:, None]
     shifted = np.take_along_axis(ref, (np.arange(W)[None, :] + shift) % W, axis=1)
     shifted = np.where(rng.random((B, W)) < 0.05, query, shifted)
@@ -646,7 +678,7 @@ def diag_batch(rng, W, B, alphabet):
     return (
         torch.from_numpy(ref.T.copy()).to(DEVICE),
         torch.from_numpy(query.T.copy()).to(DEVICE),
-        torch.from_numpy(lengths.astype(np.int32)).to(DEVICE),
+        torch.from_numpy(m.astype(np.int32)).to(DEVICE),
     )
 
 
@@ -654,25 +686,27 @@ def phase_diag_grid(seed):
     began = time.perf_counter()
     compared = {diag_counts_u8.name: 0, diag_counts_i32.name: 0}
     max_err = dict.fromkeys(compared, 0)
-    for idx, (kernel, W, alphabet) in enumerate(DIAG_GRID):
+    for idx, (kernel, W, alphabet, lengths, B) in enumerate(DIAG_GRID):
         rng = np.random.default_rng([seed, 5, idx])
-        ref_T, query_T, lengths = diag_batch(rng, W, 32768, alphabet)
-        got = kernel(ref_T, query_T, lengths)
+        ref_T, query_T, m_col = diag_batch(rng, W, B, alphabet, lengths)
+        got = kernel(ref_T, query_T, m_col)
         torch.cuda.synchronize()
-        expected = kernel.plain(ref_T, query_T, lengths)
+        expected = kernel.plain(ref_T, query_T, m_col)
         err = int((got.long() - expected.long()).abs().max())
         max_err[kernel.name] = max(max_err[kernel.name], err)
         if not torch.equal(got, expected):
             raise AssertionError(
-                "{} disagrees with its plain version at W = {}, {}".format(
-                    kernel.name, W, alphabet
-                )
+                "{} disagrees with its plain version at W = {}, B = {}, {} "
+                "symbols, lengths {}".format(kernel.name, W, B, len(alphabet), lengths)
             )
         check(int(expected.long().sum()) > 0, (kernel.name, W))
         compared[kernel.name] += 1
     emit({
         "diag_grid": {
-            "configurations": len(DIAG_GRID), "compared": compared, "B": 32768,
+            "configurations": len(DIAG_GRID), "compared": compared,
+            "B": sorted({B for *_, B in DIAG_GRID}),
+            "wrap": sum(cfg[3] == "wrap" for cfg in DIAG_GRID),
+            "all_byte_values": sum(cfg[2] == ALL_BYTES for cfg in DIAG_GRID),
             "tolerance": 0, "seconds": time.perf_counter() - began,
         }
     })
@@ -703,13 +737,28 @@ def diag_counts_by_conv1d(ref_T, query_T, m_col):
     return lambda: torch.nn.functional.conv1d(x, weight, groups=B), len(symbols)
 
 
+def diag_work(W, m_col):
+    """The work the lengths ``m_col`` ask of a diagonal-count kernel at
+    window ``W``: the position compares (sum over pairs and diagonals s of
+    min(W, m - s), where positive), the 32-position words of the bit planes
+    (the same sum of ceil(min(W, m - s) / 32)) and the live diagonals (the
+    terms that are positive)."""
+    m = np.minimum(m_col.cpu().numpy().astype(np.int64), 2 * W)
+    spans = np.clip(np.minimum(W, m[None, :] - np.arange(W)[:, None]), 0, None)
+    return int(spans.sum()), int(((spans + 31) // 32).sum()), int((spans > 0).sum())
+
+
 def time_diag(kernel, ref_T, query_T, m_col, launches=20):
     """Time of one launch of a diagonal-count kernel (``device_times``), its plain
     version's time, the time of one PyTorch call that computes the same
     counts (:func:`diag_counts_by_conv1d`, which must agree), and the bound
-    for this batch: the compares it needs (sum over pairs and diagonals s
-    of min(W, m - s)) at one integer operation each, against both planes
-    read once and the counts written once."""
+    for this batch: the 32-position words of the bit planes and the live
+    diagonals that the lengths need (:func:`diag_work`) at
+    ``insert_kernel.WORD_OPS`` and ``insert_kernel.DIAGONAL_OPS`` integer
+    operations each, against both planes and the lengths read once and the
+    counts written once. Beside it the bound at one operation a position
+    compare (``bound_ms_at_1_op_per_compare``), the kernels' bound before
+    their bit planes."""
     times, out = device_times(lambda: kernel(ref_T, query_T, m_col), launches)
     began = time.perf_counter()
     expected = kernel.plain(ref_T, query_T, m_col)
@@ -725,15 +774,14 @@ def time_diag(kernel, ref_T, query_T, m_col, launches=20):
     check(torch.equal(library_counts, out.long()),
           kernel.name + ": the conv1d counts differ from the kernel's")
     W, B = query_T.shape
-    m = m_col.cpu().numpy().astype(np.int64)
-    compares = int(
-        np.clip(np.minimum(W, m[None, :] - np.arange(W)[:, None]), 0, None).sum()
-    )
+    compares, words, diagonals = diag_work(W, m_col)
     props = torch.cuda.get_device_properties(0)
     clock_hz = sm_clock_mhz() * 1e6
-    ops_ms = compares / (props.multi_processor_count * INT_OPS_PER_SM_CLOCK * clock_hz) * 1e3
-    out_bytes = W * B * out.element_size()
-    bytes_ms = (2 * W * B + 4 * B + out_bytes) / HBM_BYTES_PER_SECOND * 1e3
+    ops_rate = props.multi_processor_count * INT_OPS_PER_SM_CLOCK * clock_hz
+    operations = words * insert_kernel.WORD_OPS + diagonals * insert_kernel.DIAGONAL_OPS
+    ops_ms = operations / ops_rate * 1e3
+    n_bytes = 2 * W * B + 4 * B + W * B * out.element_size()
+    bytes_ms = n_bytes / HBM_BYTES_PER_SECOND * 1e3
     return dict(
         ms=times["ms"],
         queued_ms=times["queued_ms"],
@@ -743,9 +791,14 @@ def time_diag(kernel, ref_T, query_T, m_col, launches=20):
         bound_by="operations" if ops_ms >= bytes_ms else "bytes",
         library_ms=library["ms"],
         library_call="conv1d, groups=B, one-hot codes of {} symbols".format(n_symbols),
+        bound_ms_at_1_op_per_compare=max(compares / ops_rate * 1e3, bytes_ms),
+        word_ops=insert_kernel.WORD_OPS,
+        diagonal_ops=insert_kernel.DIAGONAL_OPS,
         shape=dict(W=W, B=B),
         compares=compares,
-        bytes=2 * W * B + 4 * B + out_bytes,
+        words=words,
+        diagonals=diagonals,
+        bytes=n_bytes,
     )
 
 
@@ -1754,9 +1807,9 @@ def main():
     args = parser.parse_args()
     began = time.perf_counter()
 
-    card = smi("name,power.limit")
+    card = timing.smi("name,power.limit")
     emit({"device": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "sm_clock_max": smi("clocks.max.sm")})
+          "sm_clock_max": timing.smi("clocks.max.sm")})
     phase_build()
     max_err, global_column = phase_grid(args.seed)
     max_err.update(phase_diag_grid(args.seed))
@@ -1822,7 +1875,7 @@ def main():
 
     emit({"dp_global_column": global_column})
     kernels = []
-    for kernel, source, launches, timing in (
+    for kernel, source, launches, measured in (
         (dp_locate_word32, "atropos_tpu_torch/csrc/dp_align.cu", word32_launches, word32_time),
         (dp_locate_wide, "atropos_tpu_torch/csrc/dp_align.cu", wide_launches, wide_time),
         (diag_counts_u8, "atropos_tpu_torch/csrc/diag_counts.cu", u8_launches, u8_time),
@@ -1842,7 +1895,7 @@ def main():
             "launches": launches,
             "max_abs_err": max_err[kernel.name],
         }
-        entry.update(timing)
+        entry.update(measured)
         kernels.append(entry)
     print(card, flush=True)
     emit({"seconds": time.perf_counter() - began})

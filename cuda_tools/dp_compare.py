@@ -39,11 +39,12 @@ atropos_tpu_torch | tar -x -C DIR``. The tool
 import argparse
 import json
 import os
-import subprocess
 import sys
 import tempfile
 
 import numpy as np
+
+from cuda_tools import timing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAUNCHES = 20
@@ -51,13 +52,6 @@ LAUNCHES = 20
 SLOW_LAUNCHES, SLOW_MS = 5, 50.0
 SEED = 20240229  # chip_smoke.py's default --seed: the same batches
 TIMES = ("ms", "queued_ms")
-
-
-def smi(query):
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=" + query, "--format=csv,noheader", "-i", "0"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def make_batches(path, seed, kernel_name):
@@ -140,7 +134,7 @@ def time_batches(root, path, kernel_name, threads, row_caps):
     if os.path.dirname(package) != os.path.abspath(root):
         raise RuntimeError("imported {}, not the tree under {}".format(package, root))
     device = torch.device("cuda", 0)
-    clock_mhz = float(smi("clocks.max.sm").split()[0])
+    clock_mhz = float(timing.smi("clocks.max.sm").split()[0])
     data = np.load(path)
     names = sorted({key.split("/")[0] for key in data.files} - {"params"})
     params = json.loads(str(data["params"]))
@@ -196,11 +190,7 @@ def time_batches(root, path, kernel_name, threads, row_caps):
 
 
 def run_child(argv):
-    done = subprocess.run([sys.executable, "-m", "cuda_tools.dp_compare"] + argv,
-                          cwd=ROOT, capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError("{} failed:\n{}\n{}".format(argv, done.stdout, done.stderr))
-    return json.loads(done.stdout.strip().splitlines()[-1])
+    return timing.run_child("cuda_tools.dp_compare", argv, ROOT)
 
 
 def main(argv=None):
@@ -227,7 +217,7 @@ def main(argv=None):
         return 0
     if not args.parent:
         parser.error("--parent is required")
-    card = smi("name,power.limit")
+    card = timing.smi("name,power.limit")
     with tempfile.TemporaryDirectory() as work:
         batches = os.path.join(work, "batches.npz")
         shapes = run_child(["--make", batches, "--kernel", args.kernel])

@@ -1,6 +1,11 @@
-"""Times of work launched on a CUDA stream, as ``chip_smoke.py`` and
-``dp_compare.py`` take them. It imports only ``torch`` and ``numpy``, so a
-process may load it beside any tree's ``atropos_tpu_torch``."""
+"""Times of work launched on a CUDA stream, as ``chip_smoke.py``,
+``dp_compare.py`` and ``diag_compare.py`` take them, and the helpers those
+tools share: the card's ``nvidia-smi`` fields and a tool's child process.
+It imports only ``torch`` and ``numpy``, so a process may load it beside
+any tree's ``atropos_tpu_torch``."""
+import json
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -8,6 +13,25 @@ import torch
 
 #: the least time the stream sleeps before the queued launches
 MIN_SLEEP_MS = 20.0
+
+
+def smi(query):
+    """``nvidia-smi --query-gpu=QUERY --format=csv,noheader`` of card 0."""
+    done = subprocess.run(
+        ["nvidia-smi", "--query-gpu=" + query, "--format=csv,noheader", "-i", "0"],
+        capture_output=True, text=True, check=True,
+    )
+    return done.stdout.strip().splitlines()[0]
+
+
+def run_child(module, argv, cwd):
+    """Run ``python -m MODULE ARGV`` in ``cwd`` and return the JSON object
+    of its last output line; raises with its output if it fails."""
+    done = subprocess.run([sys.executable, "-m", module] + argv,
+                          cwd=cwd, capture_output=True, text=True)
+    if done.returncode != 0:
+        raise RuntimeError("{} failed:\n{}\n{}".format(argv, done.stdout, done.stderr))
+    return json.loads(done.stdout.strip().splitlines()[-1])
 
 
 def device_times(fn, launches, clock_mhz, queued=True):

@@ -271,35 +271,59 @@ def test_adapter_beyond_shared_memory(card, kernel_name, m, e, L, indel_cost):
     assert int(expected[0].sum()) > 0
 
 
-def _planes(seed, W, B, alphabet):
+def _planes(seed, W, B, alphabet, lengths="within"):
+    """Lengths in [0, W] or, for ``"wrap"``, in (W, 2W] (2W and W + 1
+    among them), where the plain version wraps."""
     rng = np.random.default_rng(seed)
     syms = np.frombuffer(alphabet, np.uint8)
     ref = syms[rng.integers(0, len(syms), (B, W))]
     query = syms[rng.integers(0, len(syms), (B, W))]
-    lengths = rng.integers(0, W + 1, B).astype(np.int32)
-    lengths[:2] = (0, W)
+    if lengths == "wrap":
+        m = rng.integers(W + 1, 2 * W + 1, B).astype(np.int32)
+        m[:2] = (2 * W, W + 1)
+    else:
+        m = rng.integers(0, W + 1, B).astype(np.int32)
+        m[:2] = (0, W)
     shift = rng.integers(0, W, B)[:, None]
     shifted = np.take_along_axis(ref, (np.arange(W)[None, :] + shift) % W, axis=1)
     query = np.where((rng.random(B) < 0.25)[:, None], shifted, query)
-    return ref.T.copy(), query.T.copy(), lengths
+    return ref.T.copy(), query.T.copy(), m
 
 
-@pytest.mark.parametrize("kernel_name,W,alphabet", [
-    ("diag_counts_u8", W, b"ACGTN") for W in (33, 64, 100, 150, 255)
+ALL_BYTES = bytes(range(256))
+
+
+@pytest.mark.parametrize("kernel_name,W,alphabet,lengths", [
+    ("diag_counts_u8", W, b"ACGTN", "within") for W in (33, 64, 100, 150, 255)
 ] + [
-    ("diag_counts_i32", W, alphabet)
+    ("diag_counts_i32", W, alphabet, "within")
     for W in (64, 255, 256, 300, 301)
     for alphabet in (b"ACGTN", b"ACGTNRYKMSWBDHVacgtn")
+] + [
+    # the bit planes' word edges, every byte value, lengths past W
+    ("diag_counts_u8", W, b"ACGTN", "within") for W in (31, 32, 63, 65, 96, 97)
+] + [
+    ("diag_counts_i32", W, b"ACGTN", "within") for W in (288, 289, 320, 512)
+] + [
+    ("diag_counts_u8", W, ALL_BYTES, lengths) for W in (1, 32, 97, 160, 255)
+    for lengths in ("within", "wrap")
+] + [
+    # 512: a tile of 16 pairs in one slab; 1500, 3000 and 24000: 16 pairs
+    # in slabs (1,000 pairs: staged a byte a thread); at 24000 one pair's
+    # whole planes exceed a block's shared memory (above about 21,000)
+    ("diag_counts_i32", W, ALL_BYTES, lengths)
+    for W in (1, 33, 256, 289, 320, 512, 1500, 3000, 24000)
+    for lengths in ("within", "wrap")
 ])
-def test_diag_counts_equal_plain_version(card, kernel_name, W, alphabet):
+def test_diag_counts_equal_plain_version(card, kernel_name, W, alphabet, lengths):
     import torch
 
     from atropos_tpu_torch.align import insert_kernel
 
     kernel = getattr(insert_kernel, kernel_name)
-    # 1000 pairs: no multiple of the warp width or of the block
-    ref, query, lengths = _planes(W * len(alphabet), W, 1000, alphabet)
-    args = [torch.from_numpy(x).to(card) for x in (ref, query, lengths)]
+    # 1000 pairs: no multiple of the warp width or of the block's tile
+    ref, query, m = _planes(W * len(alphabet) + (lengths == "wrap"), W, 1000, alphabet, lengths)
+    args = [torch.from_numpy(x).to(card) for x in (ref, query, m)]
     before = kernel.launches
     got = kernel(*args)
     torch.cuda.synchronize()

@@ -53,7 +53,7 @@ def _sources():
             paths += [
                 os.path.join(folder, name)
                 for name in names
-                if name.endswith((".py", ".cu", ".cpp"))
+                if name.endswith((".py", ".cu", ".h", ".cpp"))
             ]
     return sorted(paths)
 
@@ -77,9 +77,11 @@ def test_sources_exist():
         "atropos_tpu_torch/csrc/dp_align.cu",
         "atropos_tpu_torch/csrc/diag_counts.cu",
         "atropos_tpu_torch/csrc/dtype_probe.cu",
+        "atropos_tpu_torch/csrc/shared_limit.h",
         "atropos_tpu_torch/tools/dtype_probe.py",
         "cuda_tools/timing.py",
         "cuda_tools/dp_compare.py",
+        "cuda_tools/diag_compare.py",
         "cuda_tools/sass_rows.py",
         "cuda_tools/plain_compare.py",
         "atropos_tpu_torch/engine/turbo.py",
