@@ -206,6 +206,33 @@ def make_reads(seed, L, N, symbols=4, device="cpu"):
     return torch.from_numpy(reads).to(device)
 
 
+#: planes of :func:`make_plane` beside the random ones of :func:`make_reads`
+PLANES = ("equal", "distinct", "alternating")
+
+
+def make_plane(kind, seed, L, N, device="cpu"):
+    """A seeded [L, N] uint8 plane whose reads each hold one byte value at
+    every position (``equal``: every compare of the rule is equal), L <= 256
+    distinct values (``distinct``: a compare is equal only where a column's
+    query is the row's own byte), or two values in turn (``alternating``:
+    every other row equal), each read's values drawn from 0-255."""
+    rng = np.random.default_rng(seed)
+    pos = np.arange(L)[:, None]
+    base = rng.integers(0, 256, (1, N))
+    if kind == "equal":
+        reads = np.broadcast_to(base, (L, N))
+    elif kind == "distinct":
+        if L > 256:
+            raise ValueError("a read of {} bytes cannot hold distinct bytes".format(L))
+        reads = (base + pos) % 256
+    elif kind == "alternating":
+        other = (base + rng.integers(1, 256, (1, N))) % 256
+        reads = np.where(pos % 2 == 0, base, other)
+    else:
+        raise ValueError("unknown plane {!r}".format(kind))
+    return torch.from_numpy(np.ascontiguousarray(reads, dtype=np.uint8)).to(device)
+
+
 def time_call(fn, device, launches):
     """Milliseconds a call: CUDA events around ``launches`` calls after a
     warm-up on a card; the host clock around one call on the CPU."""

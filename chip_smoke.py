@@ -15,8 +15,9 @@ object a line:
                 kernels, the dtype probe's kernels) and ``g++`` (the host
                 runtime), all built in parallel from the sources in the
                 checkout; the instructions a row of each register
-                instantiation of ``dp_locate_word32`` takes, counted in the
-                SASS just built (``cuda_tools/sass_rows.py``)
+                instantiation of ``dp_locate_word32`` takes, and a row of
+                each dtype probe kernel's column loops, counted in the SASS
+                just built (``cuda_tools/sass_rows.py``)
 3. ``grid``     ``dp_locate_word32`` and ``dp_locate_wide`` against the plain
                 PyTorch DP on the card over a covering set of configurations
                 (indel costs 1, 2, 3 and 100000; adapters on both sides of
@@ -63,8 +64,10 @@ object a line:
                 with the three adapters named
 13. ``dtype_probe``  ``dtype_probe_i32`` and ``dtype_probe_i16x2`` against
                 their plain version (the whole final state, both shapes of the
-                probe tool, query byte moving and fixed, 3 seeds), their times,
-                and the probe tool's run on the card
+                probe tool, query byte moving and fixed, 3 seeds, the planes of
+                ``dtype_probe.PLANES``, and N of 1,002 and 16,386 reads, no
+                multiple of any block width), their times and SASS
+                instructions a row, and the probe tool's run on the card
 14. ``goldens``  seven upstream single-end cases (the info file and the
                 demultiplexed outputs among them) and every paired-end case of
                 the ported slice on the card against ``tests/conformance``
@@ -167,6 +170,11 @@ REGISTER_OPS_PER_ROW = {}
 #: same SASS (cuda_tools/sass_rows.py::strip_row_instructions): reported
 #: beside the strips' bound, which counts cuda_kernel.STRIP_OPS_PER_CELL
 STRIP_SASS_PER_ROW = {}
+#: the dtype probe's column loops by kernel, from the SASS phase_build
+#: counted (cuda_tools/sass_rows.py::probe_row_instructions)
+PROBE_SASS_ROWS = {}
+#: probe shapes whose N is no multiple of any block width, beside SHAPES
+PROBE_ODD_SHAPES = ((104, 1002), (160, 16386))
 
 
 def check(ok, message):
@@ -233,8 +241,8 @@ def phase_build():
     # dp_locate_word32's register instantiations and dp_locate_wide's
     # strips keep the column in registers, and the diagonal-count kernels
     # their query words, only if ptxas gave them no stack frame and no
-    # spills
-    register_frames, diag_frames = {}, {}
+    # spills; the probe kernels keep their state in registers likewise
+    register_frames, diag_frames, probe_frames = {}, {}, {}
     entry = None
     for line in ptxas:
         if "Compiling entry" in line:
@@ -245,11 +253,14 @@ def phase_build():
             register_frames[entry] = line
         elif "stack frame" in line and "diag_counts" in (entry or ""):
             diag_frames[entry] = line
+        elif "stack frame" in line and "dtype_probe" in (entry or ""):
+            probe_frames[entry] = line
     # (the strips twice: the timed launch and the instrumented one)
     check(len(register_frames) == len(cuda_kernel.ROW_CAPS) + 2, register_frames)
     # (the 32-bit counts twice: one slab, and slabs for the largest windows)
     check(len(diag_frames) == 3, diag_frames)
-    for entry, line in {**register_frames, **diag_frames}.items():
+    check(len(probe_frames) == len(dtype_probe.KERNELS), probe_frames)
+    for entry, line in {**register_frames, **diag_frames, **probe_frames}.items():
         check(line.startswith("0 bytes stack frame, 0 bytes spill stores"), (entry, line))
     # the register instantiations' operations a row, from the SASS just
     # built: a row's instructions without the moves of the unrolled column
@@ -258,6 +269,7 @@ def phase_build():
     REGISTER_OPS_PER_ROW.update({cap: row["ops_per_row"] for cap, row in rows.items()})
     strips = sass_rows.strip_row_instructions(listing, cuda_kernel.STRIP_ROWS)
     STRIP_SASS_PER_ROW[cuda_kernel.STRIP_ROWS] = strips["instructions_per_row"]
+    PROBE_SASS_ROWS.update(sass_rows.probe_row_instructions(sass_rows.disassemble("dtype_probe")))
     emit({
         "build": {
             "seconds": time.perf_counter() - began,
@@ -273,6 +285,8 @@ def phase_build():
             "strip_rows": {key: strips[key] for key in (
                 "strip_rows", "column_loop_instructions", "walk_instructions",
                 "instructions_per_row", "shuffles")},
+            "probe_rows": {name: {key: rows[key] for key in ("lanes", "rows", "dyn", "nodyn")}
+                           for name, rows in PROBE_SASS_ROWS.items()},
         }
     })
 
@@ -1565,31 +1579,46 @@ def phase_pe_overwrite(work, seed, n_pairs):
 # -- the dtype probe ---------------------------------------------------------------
 
 
-def phase_dtype_probe(seed, launches=20):
-    """Both probe kernels against the plain version on the card over both
-    shapes of the probe tool, the query byte moving and fixed, bytes 0-3
-    and 0-255 and 3 seeds (the whole final state compared, not only the
-    output); their times at the main path's shape and the plain version's;
-    then the probe tool itself on the card, its launches counted."""
-    began = time.perf_counter()
-    max_err = {kernel.name: 0 for kernel in dtype_probe.KERNELS}
-    compared = 0
+def probe_planes(seed):
+    """The planes the probe kernels are held to their plain version on:
+    (label, [L, N] uint8 reads on the card)."""
     for L, N in dtype_probe.SHAPES:
         for symbols in (4, 256):
             for rep in range(3):
-                reads = dtype_probe.make_reads([seed, 11, L, symbols, rep], L, N, symbols,
-                                               device=DEVICE)
-                for dyn in (True, False):
-                    out_e, state_e = dtype_probe.probe_columns(reads, torch.int32, dyn, state=True)
-                    for kernel in dtype_probe.KERNELS:
-                        out, state = kernel(reads, dyn, state=True)
-                        torch.cuda.synchronize()
-                        err = max(int((out - out_e).abs().max()),
-                                  int((state - state_e).abs().max()))
-                        max_err[kernel.name] = max(max_err[kernel.name], err)
-                        check(err == 0, "{} disagrees with its plain version at "
-                                        "L={} N={} dyn={}".format(kernel.name, L, N, dyn))
-                        compared += 1
+                yield "bytes<{}".format(symbols), dtype_probe.make_reads(
+                    [seed, 11, L, symbols, rep], L, N, symbols, device=DEVICE)
+        for kind in dtype_probe.PLANES:
+            yield kind, dtype_probe.make_plane(kind, [seed, 13, L], L, N, device=DEVICE)
+    for L, N in PROBE_ODD_SHAPES:
+        for symbols in (4, 256):
+            yield "bytes<{}".format(symbols), dtype_probe.make_reads(
+                [seed, 14, L, N, symbols], L, N, symbols, device=DEVICE)
+
+
+def phase_dtype_probe(seed, launches=20):
+    """Both probe kernels against the plain version on the card over both
+    shapes of the probe tool, the query byte moving and fixed, bytes 0-3
+    and 0-255 and 3 seeds, the planes of ``dtype_probe.PLANES``, and N of
+    1,002 and 16,386 reads (the whole final state compared, not only the
+    output); their times at the main path's shape and the plain version's,
+    and the SASS instructions a row of their column loops; then the probe
+    tool itself on the card, its launches counted."""
+    began = time.perf_counter()
+    max_err = {kernel.name: 0 for kernel in dtype_probe.KERNELS}
+    compared = 0
+    for label, reads in probe_planes(seed):
+        L, N = reads.shape
+        for dyn in (True, False):
+            out_e, state_e = dtype_probe.probe_columns(reads, torch.int32, dyn, state=True)
+            for kernel in dtype_probe.KERNELS:
+                out, state = kernel(reads, dyn, state=True)
+                torch.cuda.synchronize()
+                err = max(int((out - out_e).abs().max()),
+                          int((state - state_e).abs().max()))
+                max_err[kernel.name] = max(max_err[kernel.name], err)
+                check(err == 0, "{} disagrees with its plain version at L={} N={} {} "
+                                "dyn={}".format(kernel.name, L, N, label, dyn))
+                compared += 1
     timings = {}
     props = torch.cuda.get_device_properties(0)
     clock_hz = sm_clock_mhz() * 1e6
@@ -1611,12 +1640,15 @@ def phase_dtype_probe(seed, launches=20):
                 / (props.multi_processor_count * INT_OPS_PER_SM_CLOCK * clock_hz) * 1e3
             )
             bytes_ms = (L * N + 4 * dtype_probe.OUT_ROWS * N) / HBM_BYTES_PER_SECOND * 1e3
+            sass = PROBE_SASS_ROWS[kernel.name]
             per_shape[(L, N)] = dict(
                 ms=times["ms"], queued_ms=times["queued_ms"], host_ms=times["host_ms"],
                 plain_ms=plain_ms,
                 bound_ms=max(ops_ms, bytes_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                 library_ms=None,
+                sass_per_row=sass["dyn"]["sass_per_row"],
+                sass_per_row_nodyn=sass["nodyn"]["sass_per_row"],
                 shape=dict(L=L, N=N, M1=dtype_probe.M1, dyn=True),
                 cell_updates=cells, sm_count=props.multi_processor_count,
                 sm_clock_mhz=clock_hz / 1e6,

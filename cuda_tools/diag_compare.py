@@ -40,7 +40,6 @@ import argparse
 import json
 import os
 import re
-import shutil
 import sys
 import tempfile
 
@@ -132,39 +131,9 @@ def time_batches(root, path, shapes, check=True):
     return result
 
 
-def variant(work, label, substitute):
-    """A copy of this tree's package under ``work/label`` whose
-    ``csrc/diag_counts.cu`` went through ``substitute``; returns its root."""
-    root = os.path.join(work, label)
-    shutil.copytree(os.path.join(ROOT, "atropos_tpu_torch"),
-                    os.path.join(root, "atropos_tpu_torch"),
-                    ignore=shutil.ignore_patterns("build", "__pycache__"))
-    source = os.path.join(root, SOURCE)
-    with open(source) as handle:
-        text = handle.read()
-    changed = substitute(text)
-    if changed == text:
-        raise RuntimeError("{}: nothing to change in {}".format(label, SOURCE))
-    with open(source, "w") as handle:
-        handle.write(changed)
-    return root
-
-
-def constant_variant(work, setting):
-    """A copy whose ``csrc/diag_counts.cu`` sets ``constexpr int``s
-    otherwise, as ``NAME=VALUE`` joined by ``+`` (e.g. ``PAIR_LANES=8`` or
-    ``QWORDS=5+MIN_BLOCKS=3``)."""
-    def substitute(text):
-        for item in setting.split("+"):
-            name, value = item.split("=")
-            text = re.sub(r"constexpr int {} = \d+;".format(name),
-                          "constexpr int {} = {};".format(name, int(value)), text, count=1)
-        return text
-    return variant(work, setting, substitute)
-
-
 def stage_pack_variant(work):
-    return variant(work, "stage_pack", lambda text: COUNT_CALL.sub(NO_COUNT, text, count=1))
+    return timing.source_variant(work, "stage_pack", SOURCE,
+                                 lambda text: COUNT_CALL.sub(NO_COUNT, text, count=1))
 
 
 def run_child(argv):
@@ -205,7 +174,7 @@ def main(argv=None):
             json.dump(shapes, handle)
         roots = {"parent": os.path.abspath(args.parent), "this": ROOT}
         for setting in settings:
-            roots[setting] = constant_variant(work, setting)
+            roots[setting] = timing.constant_variant(work, SOURCE, setting)
         if args.stage_pack:
             roots["stage_pack"] = stage_pack_variant(work)
         others = [label for label in roots if label not in ("parent", "this")]

@@ -1,10 +1,12 @@
-"""Count the instructions of one row of ``dp_body_reg``'s column loop, and
-of a row of ``dp_body_warp``'s strips.
+"""Count the instructions of one row of ``dp_body_reg``'s column loop, of
+a row of ``dp_body_warp``'s strips, and of a row of the dtype probe's
+column loops.
 
 Run from the root of a checkout on a machine with the CUDA toolkit, after
-the DP kernels were built::
+the DP kernels (or, with ``--probe``, the probe's kernels) were built::
 
     python -m cuda_tools.sass_rows [--row-cap 48]
+    python -m cuda_tools.sass_rows --probe [--sass FILE]
 
 ``chip_smoke.py`` runs :func:`row_instructions` on the library it has just
 built, for every row cap, and bounds the register instantiations by
@@ -24,6 +26,15 @@ the counts of the groups, and how many of a group's instructions are
 register moves (``MOV``, ``IMAD.MOV``): the moves ptxas adds to rotate the
 unrolled column are no work of the cell rule, so ``ops_per_row`` counts a
 row's instructions without them.
+
+With ``--probe`` it disassembles ``build/libdtype_probe.so`` and counts,
+for ``dtype_probe_i32`` and ``dtype_probe_i16x2``, the instructions of
+each column loop (ptxas makes two of each kernel's: the query byte loaded
+a column, ``dyn``, and fixed) without the moves, times the lanes that
+share a read's or a read pair's rows, over the m = M1 - 1 rows a column
+updates: ``sass_per_row``, the instructions a (row, column) of one 32-bit
+word costs (:func:`probe_row_instructions`; ``chip_smoke.py`` reports it
+beside the probe's bound).
 """
 import argparse
 import collections
@@ -60,6 +71,10 @@ def functions(listing):
     return out
 
 
+def _is_move(text):
+    return re.match(r"(IMAD\.)?MOV", text.split()[0]) is not None
+
+
 def row_instructions(listing, row_cap):
     rows = group_rows(row_cap)
     key = "reg_kernelILi{}E".format(row_cap)
@@ -78,7 +93,7 @@ def row_instructions(listing, row_cap):
     at = [index for index, target in branches if target == join]
     sizes = [b - a for a, b in zip(at, at[1:])]
     moves = [
-        sum(1 for _, text in insns[a:b] if re.match(r"(IMAD\.)?MOV", text.split()[0]))
+        sum(1 for _, text in insns[a:b] if _is_move(text))
         for a, b in zip(at, at[1:])
     ]
     def median(values):
@@ -93,6 +108,20 @@ def row_instructions(listing, row_cap):
     )
 
 
+def loops(insns):
+    """(head, branch) indices of each loop of a function's instructions: a
+    branch back to an instruction of the function."""
+    index = {address: i for i, (address, _) in enumerate(insns)}
+    found = []
+    for i, (address, text) in enumerate(insns):
+        match = _BRANCH.match(text)
+        if match and match.group(2):
+            target = int(match.group(2), 16)
+            if target < address and target in index:
+                found.append((index[target], i))
+    return found
+
+
 def strip_row_instructions(listing, rows):
     """Instructions a row of ``dp_body_warp``, ``rows`` rows a lane, in the
     timed (not the instrumented) launch: the column loop (the longest
@@ -105,15 +134,7 @@ def strip_row_instructions(listing, rows):
     key = "warp_kernelILb0E"
     (name,) = [n for n in functions(listing) if key in n]
     insns = functions(listing)[name]
-    index = {address: i for i, (address, _) in enumerate(insns)}
-    loops = []
-    for i, (address, text) in enumerate(insns):
-        match = _BRANCH.match(text)
-        if match and match.group(2):
-            target = int(match.group(2), 16)
-            if target < address and target in index:
-                loops.append((index[target], i))
-    head, tail = max(loops, key=lambda loop: loop[1] - loop[0])
+    head, tail = max(loops(insns), key=lambda loop: loop[1] - loop[0])
     votes = [i for i in range(head, tail) if "VOTE.ANY" in insns[i][1]]
     walk = votes[0] - head
     return dict(
@@ -121,6 +142,40 @@ def strip_row_instructions(listing, rows):
         walk_instructions=walk, instructions_per_row=walk / rows,
         shuffles=sum(1 for _, text in insns[head:votes[0]] if "SHFL" in text),
     )
+
+
+def _source_constant(name, source):
+    with open(os.path.join(_build.CSRC_DIR, source)) as handle:
+        text = handle.read()
+    return int(re.search(r"constexpr int {} = (\d+);".format(name), text).group(1))
+
+
+def probe_row_instructions(listing, pair_lanes=None):
+    """{kernel: counts} of the probe's column loops (see the module
+    docstring): the two longest loops of each kernel (a backward branch to
+    a head in the function), the one that loads (``LDG``) as ``dyn``.
+    ``pair_lanes``: the 16-bit kernel's lanes a read pair in the build of
+    ``listing`` (default: ``PAIR_LANES`` of this tree's source)."""
+    rows = _source_constant("M1", "dtype_probe.cu") - 1
+    if pair_lanes is None:
+        pair_lanes = _source_constant("PAIR_LANES", "dtype_probe.cu")
+    lanes = {"dtype_probe_i32": 1, "dtype_probe_i16x2": pair_lanes}
+    listing_functions = functions(listing)
+    result = {}
+    for kernel, kernel_lanes in lanes.items():
+        (name,) = [n for n in listing_functions if "{}_kernel".format(kernel) in n]
+        insns = listing_functions[name]
+        bodies = [insns[head:tail + 1] for head, tail in loops(insns)]
+        counts = dict(function=name, lanes=kernel_lanes, rows=rows)
+        for body in sorted(bodies, key=len)[-2:]:
+            key = "dyn" if any("LDG" in text for _, text in body) else "nodyn"
+            moves = sum(1 for _, text in body if _is_move(text))
+            counts[key] = dict(
+                instructions=len(body), moves=moves,
+                sass_per_row=(len(body) - moves) * kernel_lanes / rows,
+            )
+        result[kernel] = counts
+    return result
 
 
 def disassemble(name):
@@ -136,12 +191,20 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--row-cap", type=int, default=48)
     parser.add_argument("--sass", help="a saved cuobjdump -sass listing")
+    parser.add_argument("--probe", action="store_true",
+                        help="count the dtype probe's column loops instead")
+    parser.add_argument("--pair-lanes", type=int,
+                        help="with --probe --sass: the lanes a read pair of the "
+                             "listing's 16-bit kernel (default: this tree's PAIR_LANES)")
     args = parser.parse_args(argv)
     if args.sass:
         with open(args.sass) as handle:
             listing = handle.read()
     else:
-        listing = disassemble("dp_align")
+        listing = disassemble("dtype_probe" if args.probe else "dp_align")
+    if args.probe:
+        print(json.dumps(probe_row_instructions(listing, args.pair_lanes)))
+        return 0
     print(json.dumps(row_instructions(listing, args.row_cap)))
     print(json.dumps(strip_row_instructions(listing, cuda_kernel.STRIP_ROWS)))
     return 0

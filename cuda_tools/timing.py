@@ -1,9 +1,13 @@
 """Times of work launched on a CUDA stream, as ``chip_smoke.py``,
-``dp_compare.py`` and ``diag_compare.py`` take them, and the helpers those
-tools share: the card's ``nvidia-smi`` fields and a tool's child process.
-It imports only ``torch`` and ``numpy``, so a process may load it beside
-any tree's ``atropos_tpu_torch``."""
+``dp_compare.py``, ``diag_compare.py`` and ``probe_compare.py`` take them,
+and the helpers those tools share: the card's ``nvidia-smi`` fields, a
+tool's child process and copies of this checkout's package with a source
+changed. It imports only ``torch`` and ``numpy``, so a process may load it
+beside any tree's ``atropos_tpu_torch``."""
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -13,6 +17,8 @@ import torch
 
 #: the least time the stream sleeps before the queued launches
 MIN_SLEEP_MS = 20.0
+#: the root of this checkout
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def smi(query):
@@ -32,6 +38,43 @@ def run_child(module, argv, cwd):
     if done.returncode != 0:
         raise RuntimeError("{} failed:\n{}\n{}".format(argv, done.stdout, done.stderr))
     return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def source_variant(work, label, source, substitute):
+    """A copy of this checkout's ``atropos_tpu_torch`` under ``work/label``
+    whose ``source`` (a path from the root, e.g.
+    ``atropos_tpu_torch/csrc/diag_counts.cu``) went through
+    ``substitute``; returns the copy's root. Raises if nothing changed."""
+    root = os.path.join(work, label)
+    shutil.copytree(os.path.join(ROOT, "atropos_tpu_torch"),
+                    os.path.join(root, "atropos_tpu_torch"),
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    path = os.path.join(root, source)
+    with open(path) as handle:
+        text = handle.read()
+    changed = substitute(text)
+    if changed == text:
+        raise RuntimeError("{}: nothing to change in {}".format(label, source))
+    with open(path, "w") as handle:
+        handle.write(changed)
+    return root
+
+
+def constant_variant(work, source, setting):
+    """A copy (:func:`source_variant`) whose ``source`` sets ``constexpr
+    int``s otherwise, as ``NAME=VALUE`` joined by ``+`` (e.g.
+    ``PAIR_LANES=8`` or ``QWORDS=5+MIN_BLOCKS=3``); raises on a name the
+    source does not define."""
+    def substitute(text):
+        for item in setting.split("+"):
+            name, value = item.split("=")
+            text, found = re.subn(r"constexpr int {} = \d+;".format(name),
+                                  "constexpr int {} = {};".format(name, int(value)),
+                                  text, count=1)
+            if not found:
+                raise RuntimeError("{} defines no constexpr int {}".format(source, name))
+        return text
+    return source_variant(work, setting, source, substitute)
 
 
 def device_times(fn, launches, clock_mhz, queued=True):

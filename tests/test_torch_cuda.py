@@ -456,14 +456,19 @@ def test_trim_on_the_card_equals_trim_on_the_cpu(card, tmp_path):
     assert outs["cuda"] == outs["cpu"] and outs["cuda"]
 
 
-@pytest.mark.parametrize("L,N", [(104, 16384), (40, 34), (160, 2)])
-@pytest.mark.parametrize("symbols", [4, 256])
+@pytest.mark.parametrize("L,N", [(104, 16384), (40, 34), (160, 2), (104, 1002), (160, 16386)])
+@pytest.mark.parametrize("symbols", [4, 256, "equal", "distinct", "alternating"])
 def test_dtype_probe_kernels_equal_plain_version(card, L, N, symbols):
+    """Random bytes below ``symbols``, or one of ``dtype_probe.PLANES``; N
+    of 1,002 and 16,386 reads is no multiple of any block width."""
     import torch
 
     from atropos_tpu_torch.tools import dtype_probe
 
-    reads = dtype_probe.make_reads(L * N + symbols, L, N, symbols, device=card)
+    if symbols in dtype_probe.PLANES:
+        reads = dtype_probe.make_plane(symbols, L * N, L, N, device=card)
+    else:
+        reads = dtype_probe.make_reads(L * N + symbols, L, N, symbols, device=card)
     for kernel in dtype_probe.KERNELS:
         for dyn in (True, False):
             before = kernel.launches

@@ -82,6 +82,7 @@ def test_sources_exist():
         "cuda_tools/timing.py",
         "cuda_tools/dp_compare.py",
         "cuda_tools/diag_compare.py",
+        "cuda_tools/probe_compare.py",
         "cuda_tools/sass_rows.py",
         "cuda_tools/plain_compare.py",
         "atropos_tpu_torch/engine/turbo.py",
