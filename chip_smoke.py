@@ -1317,7 +1317,7 @@ SIDE_ADAPTERS = (
     ("umi", "TGGAATTCTCNNNNNNCCAAGG"),
 )
 #: records of each side path run again on the CPU (and alone on the card)
-PREFIX = turbo.TurboTrimRunner.MAX_BATCH * (turbo.TurboTrimRunner.DEPTH + 2)
+PREFIX_RECORDS = turbo.TurboTrimRunner.MAX_BATCH * (turbo.TurboTrimRunner.DEPTH + 2)
 
 
 def write_side_fastq(path, rng, n_reads, read_len=150, chunk=250000):
@@ -1393,13 +1393,14 @@ def _report_sections(path):
 
 def prefix_checks(make_argv, inputs, card_outs, work, tag):
     """The side path's checks against ``--device cpu``: the first
-    ``PREFIX`` records of ``inputs`` through the CPU, whose every output
+    ``PREFIX_RECORDS`` records of ``inputs`` through the CPU, whose every output
     must be a byte-identical prefix of the card's full run
     (``card_outs``); and the same prefix through the card alone, whose
     statistics, report and summary must equal the CPU's. ``make_argv``
     (inputs, folder) -> (argv, outputs, report)."""
     prefixes = [
-        write_prefix(path, PREFIX, os.path.join(work, "{}_prefix.{}.fastq".format(tag, i)))
+        write_prefix(path, PREFIX_RECORDS,
+                     os.path.join(work, "{}_prefix.{}.fastq".format(tag, i)))
         for i, path in enumerate(inputs)
     ]
     runs = {}
@@ -1436,7 +1437,7 @@ def prefix_checks(make_argv, inputs, card_outs, work, tag):
     for prefix in prefixes:
         os.remove(prefix)
     return {
-        "records": PREFIX, "cpu_seconds": cpu["seconds"],
+        "records": PREFIX_RECORDS, "cpu_seconds": cpu["seconds"],
         "card_prefix_seconds": card["seconds"], "identical_prefix_bytes": sizes,
         "stats_counts_on_the_card_prefix": card["stats_counts"],
     }, runs

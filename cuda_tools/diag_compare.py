@@ -47,7 +47,7 @@ import numpy as np
 
 from cuda_tools import timing
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = timing.ROOT
 LAUNCHES = 20
 SEED = 20240229  # chip_smoke.py's default --seed: the same batches
 TIMES = ("ms", "queued_ms")
@@ -136,10 +136,6 @@ def stage_pack_variant(work):
                                  lambda text: COUNT_CALL.sub(NO_COUNT, text, count=1))
 
 
-def run_child(argv):
-    return timing.run_child("cuda_tools.diag_compare", argv, ROOT)
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", help="root of the other tree")
@@ -149,15 +145,18 @@ def main(argv=None):
     parser.add_argument("--stage-pack", action="store_true",
                         help="also time the kernels without their count phase")
     parser.add_argument("--make", help=argparse.SUPPRESS)
-    parser.add_argument("--time", nargs=3, metavar=("ROOT", "BATCHES", "SHAPES"),
+    parser.add_argument("--time", nargs=2, metavar=("ROOT", "BATCHES"),
                         help=argparse.SUPPRESS)
     parser.add_argument("--unchecked", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.make:
-        print(json.dumps(make_batches(args.make, SEED)))
+        shapes = make_batches(args.make, SEED)
+        with open(args.make + ".json", "w") as handle:
+            json.dump(shapes, handle)
+        print(json.dumps(shapes))
         return 0
     if args.time:
-        with open(args.time[2]) as handle:
+        with open(args.time[1] + ".json") as handle:
             shapes = json.load(handle)
         print(json.dumps(time_batches(args.time[0], args.time[1], shapes,
                                       check=not args.unchecked)))
@@ -166,39 +165,24 @@ def main(argv=None):
         parser.error("--parent is required")
     card = timing.smi("name,power.limit")
     settings = [c for c in args.constants.split(",") if c]
-    with tempfile.TemporaryDirectory() as work:
-        batches = os.path.join(work, "batches.npz")
-        shapes = run_child(["--make", batches])
-        shapes_path = os.path.join(work, "shapes.json")
-        with open(shapes_path, "w") as handle:
-            json.dump(shapes, handle)
-        roots = {"parent": os.path.abspath(args.parent), "this": ROOT}
-        for setting in settings:
-            roots[setting] = timing.constant_variant(work, SOURCE, setting)
+
+    def variants(work):
+        roots = {s: timing.constant_variant(work, SOURCE, s) for s in settings}
         if args.stage_pack:
             roots["stage_pack"] = stage_pack_variant(work)
-        others = [label for label in roots if label not in ("parent", "this")]
-        order = ["parent", "this"] + others + others[::-1] + ["this", "parent"]
-        runs = []
-        for label in order:
-            extra = ["--unchecked"] if label == "stage_pack" else []
-            runs.append((label, run_child(["--time", roots[label], batches, shapes_path]
-                                          + extra)))
+        return roots
+
+    def time_argv(work, label, root):
+        extra = ["--unchecked"] if label == "stage_pack" else []
+        return ["--time", root, os.path.join(work, "batches.npz")] + extra
+
+    shapes, order, runs = timing.compare_session(
+        "cuda_tools.diag_compare", args.parent,
+        lambda work: ["--make", os.path.join(work, "batches.npz")], time_argv, variants)
     report = {"device": card, "launches": LAUNCHES, "order": order, "batches": []}
     for shape in shapes:
-        name = shape["name"]
         entry = dict(shape)
-        for label in roots:
-            for key in TIMES:
-                entry["{}_{}".format(label, key)] = [
-                    r[name][key] for run_label, r in runs if run_label == label
-                ]
-        for label in roots:
-            prefix = "ratio_" if label == "this" else "ratio_{}_".format(label)
-            for key in TIMES:
-                if label != "parent":
-                    entry[prefix + key] = float(np.mean(entry["{}_{}".format(label, key)])
-                                                / np.mean(entry["parent_" + key]))
+        entry.update(timing.turn_times(shape["name"], runs, TIMES))
         report["batches"].append(entry)
     print(json.dumps(report), flush=True)
     return 0

@@ -46,7 +46,7 @@ import numpy as np
 
 from cuda_tools import timing
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ROOT = timing.ROOT
 LAUNCHES = 20
 #: launches of a batch whose first launch takes more than SLOW_MS
 SLOW_LAUNCHES, SLOW_MS = 5, 50.0
@@ -189,10 +189,6 @@ def time_batches(root, path, kernel_name, threads, row_caps):
     return result
 
 
-def run_child(argv):
-    return timing.run_child("cuda_tools.dp_compare", argv, ROOT)
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", help="root of the other tree")
@@ -218,29 +214,23 @@ def main(argv=None):
     if not args.parent:
         parser.error("--parent is required")
     card = timing.smi("name,power.limit")
-    with tempfile.TemporaryDirectory() as work:
-        batches = os.path.join(work, "batches.npz")
-        shapes = run_child(["--make", batches, "--kernel", args.kernel])
-        runs = []
-        for label in ("parent", "this", "this", "parent"):
-            root = os.path.abspath(args.parent) if label == "parent" else ROOT
-            extra = ["--kernel", args.kernel]
-            if label == "this":
-                extra += ["--threads", args.threads, "--row-caps", args.row_caps]
-            runs.append((label, run_child(["--time", root, batches] + extra)))
+
+    def time_argv(work, label, root):
+        extra = ["--kernel", args.kernel]
+        if label == "this":
+            extra += ["--threads", args.threads, "--row-caps", args.row_caps]
+        return ["--time", root, os.path.join(work, "batches.npz")] + extra
+
+    shapes, _, runs = timing.compare_session(
+        "cuda_tools.dp_compare", args.parent,
+        lambda work: ["--make", os.path.join(work, "batches.npz"), "--kernel", args.kernel],
+        time_argv)
     report = {"device": card, "kernel": args.kernel, "launches": LAUNCHES, "batches": []}
     this_runs = [r for label, r in runs if label == "this"]
     for shape in shapes:
         name = shape["name"]
         entry = dict(shape)
-        for key in TIMES:
-            for label in ("parent", "this"):
-                entry["{}_{}".format(label, key)] = [
-                    r[name][key] for run_label, r in runs if run_label == label
-                ]
-            entry["ratio_" + key] = float(
-                np.mean(entry["this_" + key]) / np.mean(entry["parent_" + key])
-            )
+        entry.update(timing.turn_times(name, runs, TIMES))
         entry["this_host_ms"] = [r[name]["host_ms"] for r in this_runs]
         entry["parent_host_ms"] = [r[name]["host_ms"] for label, r in runs if label == "parent"]
         for cap in row_caps:

@@ -36,7 +36,6 @@ import argparse
 import json
 import os
 import sys
-import tempfile
 
 import numpy as np
 
@@ -98,10 +97,6 @@ def time_runs(root, path, shapes):
     return result
 
 
-def run_child(argv):
-    return timing.run_child("cuda_tools.probe_compare", argv, ROOT)
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--parent", help="root of the other tree")
@@ -112,7 +107,10 @@ def main(argv=None):
     parser.add_argument("--time", nargs=2, metavar=("ROOT", "READS"), help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.make:
-        print(json.dumps(make_reads(args.make, SEED)))
+        shapes = make_reads(args.make, SEED)
+        with open(args.make + ".json", "w") as handle:
+            json.dump(shapes, handle)
+        print(json.dumps(shapes))
         return 0
     if args.time:
         with open(args.time[1] + ".json") as handle:
@@ -123,36 +121,21 @@ def main(argv=None):
         parser.error("--parent is required")
     card = timing.smi("name,power.limit")
     settings = [c for c in args.constants.split(",") if c]
-    with tempfile.TemporaryDirectory() as work:
-        reads = os.path.join(work, "reads.npz")
-        shapes = run_child(["--make", reads])
-        with open(reads + ".json", "w") as handle:
-            json.dump(shapes, handle)
-        roots = {"parent": os.path.abspath(args.parent), "this": ROOT}
-        for setting in settings:
-            roots[setting] = timing.constant_variant(work, SOURCE, setting)
-        others = [label for label in roots if label not in ("parent", "this")]
-        order = ["parent", "this"] + others + others[::-1] + ["this", "parent"]
-        runs = [(label, run_child(["--time", roots[label], reads])) for label in order]
+    shapes, order, runs = timing.compare_session(
+        "cuda_tools.probe_compare", args.parent,
+        lambda work: ["--make", os.path.join(work, "reads.npz")],
+        lambda work, label, root: ["--time", root, os.path.join(work, "reads.npz")],
+        lambda work: {s: timing.constant_variant(work, SOURCE, s) for s in settings},
+    )
     report = {"device": card, "launches": LAUNCHES, "order": order, "runs": []}
-    names = [run_name(kernel, L, N, dyn) for L, N in shapes
-             for kernel in ("dtype_probe_i32", "dtype_probe_i16x2") for dyn in (True, False)]
-    for name in names:
-        kernel, shape, dyn = name.split("/")
-        entry = dict(name=name, kernel=kernel, shape=shape, dyn=dyn == "dyn")
-        for label in roots:
-            for key in TIMES:
-                entry["{}_{}".format(label, key)] = [
-                    r[name][key] for run_label, r in runs if run_label == label
-                ]
-        for label in roots:
-            if label == "parent":
-                continue
-            prefix = "ratio_" if label == "this" else "ratio_{}_".format(label)
-            for key in TIMES:
-                entry[prefix + key] = float(np.mean(entry["{}_{}".format(label, key)])
-                                            / np.mean(entry["parent_" + key]))
-        report["runs"].append(entry)
+    for L, N in shapes:
+        for kernel in ("dtype_probe_i32", "dtype_probe_i16x2"):
+            for dyn in (True, False):
+                name = run_name(kernel, L, N, dyn)
+                entry = dict(name=name, kernel=kernel, shape="L={},N={}".format(L, N),
+                             dyn=dyn)
+                entry.update(timing.turn_times(name, runs, TIMES))
+                report["runs"].append(entry)
     print(json.dumps(report), flush=True)
     return 0
 

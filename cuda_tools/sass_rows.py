@@ -45,6 +45,7 @@ import subprocess
 import sys
 
 from atropos_tpu_torch.align import _build, cuda_kernel
+from atropos_tpu_torch.tools import dtype_probe
 
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _BRANCH = re.compile(r"^(@!?U?P\w+\s+)?BRA\s+(?:`\(\.L_x_\d+\)|0x([0-9a-f]+))")
@@ -144,35 +145,29 @@ def strip_row_instructions(listing, rows):
     )
 
 
-def _source_constant(name, source):
-    with open(os.path.join(_build.CSRC_DIR, source)) as handle:
-        text = handle.read()
-    return int(re.search(r"constexpr int {} = (\d+);".format(name), text).group(1))
-
-
-def probe_row_instructions(listing, pair_lanes=None):
+def probe_row_instructions(listing):
     """{kernel: counts} of the probe's column loops (see the module
     docstring): the two longest loops of each kernel (a backward branch to
-    a head in the function), the one that loads (``LDG``) as ``dyn``.
-    ``pair_lanes``: the 16-bit kernel's lanes a read pair in the build of
-    ``listing`` (default: ``PAIR_LANES`` of this tree's source)."""
-    rows = _source_constant("M1", "dtype_probe.cu") - 1
-    if pair_lanes is None:
-        pair_lanes = _source_constant("PAIR_LANES", "dtype_probe.cu")
-    lanes = {"dtype_probe_i32": 1, "dtype_probe_i16x2": pair_lanes}
+    a head in the function), the one that loads (``LDG``) as ``dyn``. The
+    lanes a read pair's rows are split over are read from the listing: a
+    16-bit column loop that shuffles (``SHFL``) passes the boundary row
+    between two lanes, one that does not keeps the pair in one lane (the
+    source's ``static_assert`` allows no other split)."""
+    rows = dtype_probe.M1 - 1
     listing_functions = functions(listing)
     result = {}
-    for kernel, kernel_lanes in lanes.items():
+    for kernel in ("dtype_probe_i32", "dtype_probe_i16x2"):
         (name,) = [n for n in listing_functions if "{}_kernel".format(kernel) in n]
         insns = listing_functions[name]
-        bodies = [insns[head:tail + 1] for head, tail in loops(insns)]
-        counts = dict(function=name, lanes=kernel_lanes, rows=rows)
-        for body in sorted(bodies, key=len)[-2:]:
+        bodies = sorted((insns[head:tail + 1] for head, tail in loops(insns)), key=len)[-2:]
+        lanes = 2 if any("SHFL" in text for body in bodies for _, text in body) else 1
+        counts = dict(function=name, lanes=lanes, rows=rows)
+        for body in bodies:
             key = "dyn" if any("LDG" in text for _, text in body) else "nodyn"
             moves = sum(1 for _, text in body if _is_move(text))
             counts[key] = dict(
                 instructions=len(body), moves=moves,
-                sass_per_row=(len(body) - moves) * kernel_lanes / rows,
+                sass_per_row=(len(body) - moves) * lanes / rows,
             )
         result[kernel] = counts
     return result
@@ -193,9 +188,6 @@ def main(argv=None):
     parser.add_argument("--sass", help="a saved cuobjdump -sass listing")
     parser.add_argument("--probe", action="store_true",
                         help="count the dtype probe's column loops instead")
-    parser.add_argument("--pair-lanes", type=int,
-                        help="with --probe --sass: the lanes a read pair of the "
-                             "listing's 16-bit kernel (default: this tree's PAIR_LANES)")
     args = parser.parse_args(argv)
     if args.sass:
         with open(args.sass) as handle:
@@ -203,7 +195,7 @@ def main(argv=None):
     else:
         listing = disassemble("dtype_probe" if args.probe else "dp_align")
     if args.probe:
-        print(json.dumps(probe_row_instructions(listing, args.pair_lanes)))
+        print(json.dumps(probe_row_instructions(listing)))
         return 0
     print(json.dumps(row_instructions(listing, args.row_cap)))
     print(json.dumps(strip_row_instructions(listing, cuda_kernel.STRIP_ROWS)))

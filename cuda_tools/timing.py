@@ -2,14 +2,16 @@
 ``dp_compare.py``, ``diag_compare.py`` and ``probe_compare.py`` take them,
 and the helpers those tools share: the card's ``nvidia-smi`` fields, a
 tool's child process and copies of this checkout's package with a source
-changed. It imports only ``torch`` and ``numpy``, so a process may load it
-beside any tree's ``atropos_tpu_torch``."""
+changed, and the session in which a compare tool times trees in turns. It
+imports only ``torch`` and ``numpy``, so a process may load it beside any
+tree's ``atropos_tpu_torch``."""
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -75,6 +77,55 @@ def constant_variant(work, source, setting):
                 raise RuntimeError("{} defines no constexpr int {}".format(source, name))
         return text
     return source_variant(work, setting, source, substitute)
+
+
+def compare_session(module, parent, make_argv, time_argv, variants=None):
+    """The session of a compare tool ``module`` (``cuda_tools.probe_compare``
+    and its siblings), in a temporary directory ``work``:
+
+    1. ``python -m MODULE make_argv(work)`` writes the inputs; the JSON
+       object it prints is returned as ``made``;
+    2. ``variants(work)``, if given, makes copies of this checkout
+       (:func:`constant_variant`) as ``{label: root}``;
+    3. each tree is timed by ``python -m MODULE time_argv(work, label,
+       root)`` in turns: ``parent``, ``this``, the copies, the copies again
+       in the other order, ``this``, ``parent``.
+
+    Returns ``(made, order, runs)``, ``runs`` the ``(label, result)`` of
+    each turn in ``order``."""
+    with tempfile.TemporaryDirectory() as work:
+        made = run_child(module, make_argv(work), ROOT)
+        roots = {"parent": os.path.abspath(parent), "this": ROOT}
+        if variants is not None:
+            roots.update(variants(work))
+        others = list(roots)[2:]
+        order = ["parent", "this"] + others + others[::-1] + ["this", "parent"]
+        runs = [(label, run_child(module, time_argv(work, label, roots[label]), ROOT))
+                for label in order]
+    return made, order, runs
+
+
+def turn_times(name, runs, keys):
+    """The times ``keys`` of run ``name`` in each turn of ``runs``
+    (:func:`compare_session`): ``LABEL_KEY``, the list of a tree's times in
+    its turns, and for every tree but the parent the ratio of its mean to
+    the parent's mean, ``ratio_KEY`` for ``this`` and ``ratio_LABEL_KEY``
+    for a copy."""
+    labels = list(dict.fromkeys(label for label, _ in runs))
+    entry = {}
+    for label in labels:
+        for key in keys:
+            entry["{}_{}".format(label, key)] = [
+                result[name][key] for run_label, result in runs if run_label == label
+            ]
+    for label in labels:
+        if label == "parent":
+            continue
+        prefix = "ratio_" if label == "this" else "ratio_{}_".format(label)
+        for key in keys:
+            entry[prefix + key] = float(np.mean(entry["{}_{}".format(label, key)])
+                                        / np.mean(entry["parent_" + key]))
+    return entry
 
 
 def device_times(fn, launches, clock_mhz, queued=True):

@@ -17,20 +17,25 @@ the scalar rule.
 With the zero start of the probe, pack never leaves 0 and 1 after a
 column, so no relaxation pass ever takes and no compare ties: whole-probe
 runs exercise the cell step only. The relaxation (takes and ties among
-them) is covered by the runs from random start states and by the
-exhaustive checks of one cell step and one pass over every pair of pack
-values in 0..530.
+them) is covered by the runs from random start states, held against
+``body_full`` itself made to start from them, and by the exhaustive
+checks of one cell step and one pass over every pair of pack values in
+0..530.
 """
+import ast
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax import lax
+from jax.experimental import pallas as pl
 
 from atropos_tpu_torch.tools import dtype_probe
 from atropos_tpu_torch.tools.dtype_probe import M1, OUT_ROWS, probe_columns
-from tests.test_torch_dtype_probe import reference
+from tests.test_torch_dtype_probe import TOOL, _body_full_node, reference
 
 torch.set_num_threads(1)
 
@@ -207,6 +212,56 @@ def body_full_out(seed, symbols, dyn, int16):
     return reference(reads, jnp.int16 if int16 else jnp.int32, True, dyn)
 
 
+class _FromStart(ast.NodeTransformer):
+    """``body_full`` made to start from given planes and to store its final
+    state: ``pack0`` and ``pay0`` are read from two more inputs instead of
+    being zeros, and the final ``pack`` and ``pay`` go to two more outputs.
+    The column rule itself is the tool's source, untouched."""
+
+    def __init__(self):
+        self.replaced = []
+
+    def visit_FunctionDef(self, node):
+        if node.name != "body_full":  # the column body inside it
+            return self.generic_visit(node)
+        node.args.args[1:1] = [ast.arg("pack0_ref"), ast.arg("pay0_ref")]
+        node.args.args[4:4] = [ast.arg("pack_ref"), ast.arg("pay_ref")]
+        self.generic_visit(node)
+        node.body += ast.parse("pack_ref[...] = pack.astype(jnp.int32)\n"
+                               "pay_ref[...] = pay.astype(jnp.int32)").body
+        return node
+
+    def visit_Assign(self, node):
+        (target,) = node.targets
+        if isinstance(target, ast.Name) and target.id in ("pack0", "pay0"):
+            self.replaced.append(target.id)
+            node.value = ast.parse("{}_ref[...].astype(dt)".format(target.id),
+                                   mode="eval").body
+        return node
+
+
+def body_full_from(reads, start, int16, dyn):
+    """``body_full`` in interpret mode from ``start`` ([2, M1, N]: pack, then
+    pay) instead of zeros: -> ([8, N] out, [2, M1, N] final state)."""
+    n_columns, n_reads = reads.shape
+    change = _FromStart()
+    node = change.visit(_body_full_node())
+    assert sorted(change.replaced) == ["pack0", "pay0"]
+    namespace = dict(jnp=jnp, lax=lax, pl=pl, M1=M1, B=n_reads, L=n_columns)
+    exec(compile(ast.fix_missing_locations(ast.Module(body=[node], type_ignores=[])),
+                 TOOL, "exec"), namespace)
+    kern = functools.partial(namespace["body_full"], dt=jnp.int16 if int16 else jnp.int32,
+                             use_concat=True, use_dyn=dyn)
+    plane = jax.ShapeDtypeStruct((M1, n_reads), jnp.int32)
+    call = pl.pallas_call(
+        kern, out_shape=(jax.ShapeDtypeStruct((OUT_ROWS, n_reads), jnp.int32), plane, plane),
+        interpret=True,
+    )
+    out, pack, pay = call(jnp.asarray(reads).astype(jnp.int32),
+                          jnp.asarray(start[0], jnp.int32), jnp.asarray(start[1], jnp.int32))
+    return np.asarray(out), np.stack([np.asarray(pack), np.asarray(pay)])
+
+
 # -- the tests -----------------------------------------------------------------
 
 
@@ -283,6 +338,29 @@ def test_words_from_any_start_equal_the_scalar_rule(dyn, symbols, lanes):
         assert np.array_equal(got_out, out) and np.array_equal(got_state, state), seed
         # every compare of the equal plane is equal: nothing to take
         assert (takes > 0 and ties > 0) == (symbols != "equal"), (takes, ties)
+
+
+@pytest.mark.parametrize("int16", [True, False], ids=["int16", "int32"])
+@pytest.mark.parametrize("symbols", [4, 256], ids=["bytes0-3", "bytes0-255"])
+@pytest.mark.parametrize("dyn", [True, False], ids=["dyn", "nodyn"])
+def test_the_scalar_rule_from_any_start_is_body_full(dyn, symbols, int16):
+    """From one random non-zero start (pack 0..512, pay 0..L), where the
+    passes take and tie, the scalar rule and the words (both lane counts)
+    equal ``body_full`` in interpret mode, the whole final state compared:
+    the strict ``<`` of a take and the tie that keeps the tail come from
+    the TPU tool's kernel, not from this file."""
+    L, N = 40, 128
+    rng = np.random.default_rng([23, symbols])
+    reads = random_reads(7, symbols, L, N)
+    start = np.stack([rng.integers(0, 513, (M1, N)), rng.integers(0, L + 1, (M1, N))])
+    want_out, want_state = body_full_from(reads, start, int16, dyn)
+    out, state, takes, ties = scalar_columns(reads, dyn, start)
+    assert takes > 0 and ties > 0, (takes, ties)
+    assert np.array_equal(out, want_out) and np.array_equal(state, want_state)
+    for lanes in LANES:
+        got_out, got_state = kernel_words(reads, dyn, lanes, start)
+        assert np.array_equal(got_out, want_out), lanes
+        assert np.array_equal(got_state, want_state), lanes
 
 
 def _pair_grid(limit, seed):
