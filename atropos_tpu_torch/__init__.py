@@ -15,8 +15,8 @@ Modules carry the names of their ``atropos_tpu`` counterparts:
 - ``atropos_tpu_torch.io``        — sequence I/O (FASTA/FASTQ)
 - ``atropos_tpu_torch.adapters``  — adapter parsing/matching/caching
 - ``atropos_tpu_torch.runtime``   — native FASTQ/FASTA parser, packer, formatter
-- ``atropos_tpu_torch.engine``    — the turbo single-end and paired-end runners and their device steps
-- ``atropos_tpu_torch.commands``  — the trim command, CLI, reports, read statistics
+- ``atropos_tpu_torch.engine``    — the turbo single-end and paired-end runners and their device steps, and the batched TrimEngine of the per-record pipeline
+- ``atropos_tpu_torch.commands``  — the trim command (turbo and per-record pipeline), CLI, reports, read statistics
 - ``atropos_tpu_torch.tools``     — measurement tools (the dtype probe of the DP column body)
 
 The package imports ``torch`` and ``numpy`` only. Every entry point takes
@@ -37,8 +37,8 @@ class AtroposError(Exception):
 #: name the ROADMAP.md queue item that will bring it
 ROADMAP_ITEMS = {
     "engine": (
-        "queue 1 item 4 (TrimEngine and the scalar pipeline for "
-        "configurations the turbo runner declines, colorspace)"
+        "queue 1 item 4b (colorspace, FASTA+qual, SAM/BAM and SRA input, "
+        "and per-record --stats on the pipeline path)"
     ),
     "device-quality": "queue 1 item 5 (device quality-trimming kernels)",
     "commands": "queue 1 item 6 (qc, detect and error commands, device counts)",

@@ -8,7 +8,9 @@ framework uses, mirroring the reference layering
 (``atropos/align/__init__.py``). The paired-end :class:`InsertAligner`
 holds the insert matcher's parameters and its random-match probability;
 the turbo paired runner does the matching itself, over whole batches
-(:class:`~atropos_tpu_torch.engine.turbo._InsertPair`).
+(:class:`~atropos_tpu_torch.engine.turbo._InsertPair`), and the per-record
+pipeline decides per pair in :meth:`InsertAligner.match_insert` from the
+candidates the batched engine computed on the device.
 """
 from collections import namedtuple
 
@@ -173,16 +175,17 @@ MatchInfo = namedtuple(
 
 
 class InsertAligner:
-    """Parameters of the paired-end insert matcher.
+    """The paired-end insert matcher.
 
-    Counterpart of ``atropos_tpu/align/__init__.py::InsertAligner`` without
-    its per-pair ``match_insert``: the turbo paired runner aligns read1
-    against reverse-complemented read2 for a whole batch on the device
-    (the diagonal-count kernels of
-    :mod:`atropos_tpu_torch.align.insert_kernel`) and makes every decision
-    of ``match_insert`` vectorized on the host from these parameters, with
-    the same thresholds, the same order and the same float64
-    random-match probability (:class:`RandomMatchProbability`).
+    Counterpart of ``atropos_tpu/align/__init__.py::InsertAligner``. Read1
+    is aligned against reverse-complemented read2 for a whole batch on the
+    device (the diagonal-count kernels of
+    :mod:`atropos_tpu_torch.align.insert_kernel`). The turbo paired runner
+    makes every decision of :meth:`match_insert` vectorized on the host
+    from these parameters; the per-record pipeline calls
+    :meth:`match_insert` per pair with the batch's candidates. Both use the
+    same thresholds, the same order and the same float64 random-match
+    probability (:class:`RandomMatchProbability`).
     """
 
     def __init__(
@@ -216,3 +219,96 @@ class InsertAligner:
         self.base_probs = base_probs or dict(match_prob=0.25, mismatch_prob=0.75)
         self.adapter_wildcards = adapter_wildcards
         self.read_wildcards = read_wildcards
+
+    def match_insert(self, seq1, seq2, precomputed_matches):
+        """Try to find the insert overlap between a read pair.
+
+        Returns ``(insert_match, adapter_match1, adapter_match2)`` where the
+        adapter matches may be None (overlap too short to verify adapters),
+        or None if there is no insert match at all.
+
+        ``precomputed_matches`` carries the candidate alignments of the pair
+        that :class:`~atropos_tpu_torch.align.batched.BatchInsertMatcher`
+        computed for the batch (``None`` meaning "computed, no
+        candidates"); the scalar ``MultiAligner`` of the reference has no
+        counterpart here.
+        """
+        seq_len1 = len(seq1)
+        seq_len2 = len(seq2)
+        seq_len = min(seq_len1, seq_len2)
+        if seq_len1 > seq_len2:
+            seq1 = seq1[:seq_len2]
+        elif seq_len2 > seq_len1:
+            seq2 = seq2[:seq_len1]
+
+        def _match(_insert_match, _offset, _insert_match_size, _):
+            if _offset < self.min_adapter_overlap:
+                # Overhang too short for a confident adapter match; return
+                # the insert match alone (error correction is still valid).
+                return (_insert_match, None, None)
+
+            def _adapter_match(insert_seq, adapter_seq, adapter_len):
+                amatch = compare_prefixes(
+                    insert_seq[_insert_match_size:],
+                    adapter_seq,
+                    wildcard_ref=self.adapter_wildcards,
+                    wildcard_query=self.read_wildcards,
+                )
+                alen = min(_offset, adapter_len)
+                return amatch, alen, round(alen * self.max_adapter_mismatch_frac)
+
+            a1_match, a1_length, a1_max_mismatches = _adapter_match(
+                seq1, self.adapter1, self.adapter1_len
+            )
+            a2_match, a2_length, a2_max_mismatches = _adapter_match(
+                seq2, self.adapter2, self.adapter2_len
+            )
+
+            if a1_match[5] > a1_max_mismatches and a2_match[5] > a2_max_mismatches:
+                return None
+
+            if min(a1_length, a2_length) > self.adapter_check_cutoff:
+                a1_prob = self.match_probability(a1_match[4], a1_length)
+                a2_prob = self.match_probability(a2_match[4], a2_length)
+                if (a1_prob * a2_prob) > self.adapter_max_rmp:
+                    return None
+
+            mismatches = min(a1_match[5], a2_match[5])
+
+            def _create_match(alen, slen):
+                alen = min(alen, slen - _insert_match_size)
+                _mismatches = min(alen, mismatches)
+                _matches = alen - _mismatches
+                return Match(0, alen, _insert_match_size, slen, _matches, _mismatches)
+
+            return (
+                _insert_match,
+                _create_match(a1_length, seq_len1),
+                _create_match(a2_length, seq_len2),
+            )
+
+        insert_matches = precomputed_matches
+        if insert_matches:
+            filtered_matches = []
+            for insert_match in insert_matches:
+                offset = min(insert_match[0], seq_len - insert_match[3])
+                insert_match_size = seq_len - offset
+                prob = self.match_probability(
+                    insert_match[4], insert_match_size, **self.base_probs
+                )
+                if prob <= self.insert_max_rmp:
+                    filtered_matches.append(
+                        (insert_match, offset, insert_match_size, prob)
+                    )
+
+            if filtered_matches:
+                if len(filtered_matches) == 1:
+                    return _match(*filtered_matches[0])
+                # Try candidates in order of random-match probability.
+                filtered_matches.sort(key=lambda x: x[3])
+                for match_args in filtered_matches:
+                    match = _match(*match_args)
+                    if match:
+                        return match
+
+        return None

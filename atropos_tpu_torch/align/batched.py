@@ -628,16 +628,61 @@ class BatchInsertMatcher:
     length — exactly how ``InsertAligner.match_insert`` calls it).
 
     The device computes the per-diagonal match counts (the diagonal-count
-    kernels); :meth:`candidate_arrays` reconstructs the scalar kernel's
-    candidate stream from them on the host, in numpy, exactly as
+    kernels, :meth:`match_counts_device`); :meth:`candidate_arrays`
+    reconstructs the scalar kernel's candidate stream from them on the
+    host, in numpy, exactly as
     ``atropos_tpu/align/batched.py::BatchInsertMatcher`` does (see there
-    for the banding derivation).
+    for the banding derivation), and :meth:`reconstruct` turns it into the
+    per-pair candidate lists of the scalar format. ``device`` is where the
+    counts of :meth:`candidates` are computed.
     """
 
-    def __init__(self, max_error_rate, min_overlap=1, max_matches=100):
+    def __init__(self, max_error_rate, min_overlap=1, max_matches=100,
+                 device="cpu"):
         self.max_error_rate = float(max_error_rate)
         self.min_overlap = min_overlap
         self.max_matches = max_matches
+        self.device = torch.device(device)
+
+    @staticmethod
+    def match_counts_device(refs_T, queries_T, lengths, n_symbols):
+        """[W, B] uint8 byte planes and [B] int32 lengths on one device in,
+        [W, B] match counts out, without a host synchronization: the
+        diagonal-count kernel that ``W`` and the planes' combined alphabet
+        of ``n_symbols`` symbols select
+        (:func:`~atropos_tpu_torch.align.insert_kernel.kernel_for`) on CUDA
+        tensors, its plain version on CPU tensors."""
+        from atropos_tpu_torch.align import insert_kernel
+
+        kernel = insert_kernel.kernel_for(refs_T.shape[0], n_symbols)
+        return kernel(refs_T, queries_T, lengths)
+
+    def candidates(self, refs_u8, reads_u8, lengths):
+        """Per-pair candidate lists in the scalar ``MultiAligner.locate``
+        format. refs_u8/reads_u8: [B, W] uint8 (ref = rc(read2[:m_b]),
+        query = read1[:m_b], zero-padded); lengths: [B] per-pair m_b.
+        Returns a list of B entries, each a list of (refstart, refstop,
+        querystart, querystop, matches, errors) tuples or None.
+        """
+        refs_u8 = np.ascontiguousarray(refs_u8, np.uint8)
+        reads_u8 = np.ascontiguousarray(reads_u8, np.uint8)
+        lengths = np.ascontiguousarray(lengths, np.int32)
+        W = reads_u8.shape[1]
+        valid = np.arange(W)[None, :] < lengths[:, None]
+        n_symbols = len(
+            np.union1d(np.unique(refs_u8[valid]), np.unique(reads_u8[valid]))
+        )
+        dev = self.device
+
+        def plane(array):
+            return torch.from_numpy(np.ascontiguousarray(array.T)).to(dev)
+
+        counts = self.match_counts_device(
+            plane(refs_u8), plane(reads_u8),
+            torch.from_numpy(lengths).to(dev), n_symbols,
+        )
+        counts = counts.cpu().numpy().astype(np.int32)  # [W, B]
+        return self.reconstruct(counts, refs_u8, reads_u8, lengths)
 
     def candidate_arrays(self, counts, refs_u8, reads_u8, lengths):
         """Fully-vectorized candidate-stream reconstruction.
@@ -723,3 +768,32 @@ class BatchInsertMatcher:
             cost=cost,
             size=size,
         )
+
+    def reconstruct(self, counts, refs_u8, reads_u8, lengths):
+        """Scalar-format candidate lists (list-of-tuples per pair) built
+        from :meth:`candidate_arrays`; the array form is the turbo path's,
+        this converter serves the per-record engine."""
+        arrs = self.candidate_arrays(counts, refs_u8, reads_u8, lengths)
+        m = lengths.astype(np.int64)
+        B = m.shape[0]
+        ss, bs = np.nonzero(arrs["cand"])
+        # group candidates by pair, s descending
+        order = np.lexsort((-ss, bs))
+        ss, bs = ss[order], bs[order]
+        bounds = np.searchsorted(bs, np.arange(B + 1))
+        results = []
+        for b in range(B):
+            m_b = int(m[b])
+            out = [
+                (int(s), m_b, 0, m_b - int(s), int(counts[s, b]),
+                 int(arrs["cost"][s, b]))
+                for s in ss[bounds[b] : bounds[b + 1]]
+            ]
+            if arrs["final_ok"][b]:
+                s_f = int(arrs["final_s"][b])
+                out.append(
+                    (s_f, m_b, 0, m_b, int(counts[s_f, b]),
+                     int(arrs["cost"][s_f, b]))
+                )
+            results.append(out or None)
+        return results

@@ -1,19 +1,105 @@
-"""Shared command machinery: the summary tree and the base command runner.
+"""Shared command machinery: the batch loop, the summary tree, and the
+record batcher every command runner is built on.
 
-The runner owns the input reader (whose ``summarize`` feeds the report's
-input section) and the run's summary; summaries are merge-capable dict
-trees that collapse to plain data at the end of a run. Counterpart of
-``atropos_tpu/commands/base.py`` without the per-record batch loop, which
-only the scalar pipeline uses.
+Records stream off a reader and are grouped into fixed-size batches (the
+unit of work the batched engine encodes into arrays for the device).
+Summaries are merge-capable dict trees that collapse to plain data at the
+end of a run. Counterpart of ``atropos_tpu/commands/base.py`` for one
+process on one device: the multi-host sharding of the batches and the
+``--progress`` wrapper of the batch iterator, which only logs, are not
+part of this package.
 """
 import platform
 import sys
 from collections.abc import Sequence
 
-from atropos_tpu_torch import NotPortedError, __version__
+from atropos_tpu_torch import AtroposError, NotPortedError, __version__
 from atropos_tpu_torch.adapters import AdapterCache
 from atropos_tpu_torch.io.seqio import open_reader
 from atropos_tpu_torch.util import Const, MergingDict, Summarizable, Timing
+
+
+class Pipeline:
+    """Consumes record batches, tracking per-source record/bp tallies."""
+
+    def __init__(self):
+        self.record_counts = {}
+        self.bp_counts = {}
+
+    def __call__(self, command_runner, raise_on_error=False, **kwargs):
+        self.start(**kwargs)
+        try:
+            for batch in command_runner.iterator():
+                self.process_batch(batch)
+        except Exception as err:
+            if raise_on_error:
+                raise
+            command_runner.summary["exception"] = dict(
+                message=str(err), details=sys.exc_info()
+            )
+        finally:
+            self.finish(command_runner.summary, **kwargs)
+
+    def start(self, **kwargs):
+        pass
+
+    def process_batch(self, batch):
+        """Handle one ({metadata}, [records]) batch."""
+        batch_meta, records = batch
+        context = batch_meta.copy()
+        source = context["source"]
+        self.record_counts[source] = (
+            self.record_counts.get(source, 0) + context["size"]
+        )
+        # per-source [read1_bp, read2_bp]; handlers mutate it in place
+        context["bp"] = self.bp_counts.setdefault(source, [0, 0])
+        self.add_to_context(context)
+        self.handle_records(context, records)
+
+    def add_to_context(self, context):
+        pass
+
+    def handle_records(self, context, records):
+        for idx, record in enumerate(records):
+            try:
+                self.handle_record(context, record)
+            except Exception as err:
+                raise AtroposError(
+                    "An error occurred at record {} of batch {}".format(
+                        idx, context["index"]
+                    )
+                ) from err
+
+    def handle_record(self, context, record):
+        raise NotImplementedError()
+
+    def handle_reads(self, context, read1, read2=None):
+        raise NotImplementedError()
+
+    def finish(self, summary, **kwargs):
+        totals = tuple(sum(col) for col in zip(*self.bp_counts.values()))
+        summary.update(
+            record_counts=self.record_counts,
+            total_record_count=sum(self.record_counts.values()),
+            bp_counts=self.bp_counts,
+            total_bp_counts=totals,
+            sum_total_bp_count=sum(totals),
+        )
+
+
+class SingleEndPipelineMixin:
+    def handle_record(self, context, record):
+        context["bp"][0] += len(record)
+        return self.handle_reads(context, record)
+
+
+class PairedEndPipelineMixin:
+    def handle_record(self, context, record):
+        read1, read2 = record
+        counts = context["bp"]
+        counts[0] += len(read1.sequence)
+        counts[1] += len(read2.sequence)
+        return self.handle_reads(context, read1, read2)
 
 
 class Summary(MergingDict):
@@ -60,11 +146,11 @@ class Summary(MergingDict):
 
 
 class BaseCommandRunner:
-    """Owns the reader and the summary for one command invocation.
+    """Owns the reader + batcher + summary for one command invocation.
 
-    Attribute lookups fall through to the reader and then to the parsed
-    options, so command code can write ``self.quality_base`` etc. without
-    caring where the value lives.
+    Iterating the runner yields batches; attribute lookups fall through to
+    the reader and then to the parsed options, so command code can write
+    ``self.quality_base`` etc. without caring where the value lives.
     """
 
     def __init__(self, options, summary_class=Summary):
@@ -76,6 +162,13 @@ class BaseCommandRunner:
         self.batches = 0
         self.done = False
         self.reader = self._open_input(options)
+
+        source = iter(self.reader)
+        if options.subsample:
+            source = self._subsampled(source, options.subsample,
+                                      options.subsample_seed)
+        self.iterable = enumerate(source, 1)
+        self._batch_source = self._generate_batches()
         self.init_summary()
 
     #: reader-constructor arguments copied verbatim from the options
@@ -104,12 +197,81 @@ class BaseCommandRunner:
             **common,
         )
 
+    @staticmethod
+    def _subsampled(source, fraction, seed):
+        import random
+
+        if seed:
+            random.seed(seed)
+
+        def gen():
+            for record in source:
+                if random.random() < fraction:
+                    yield record
+
+        return gen()
+
     def __getattr__(self, name):
         if hasattr(self.reader, name):
             return getattr(self.reader, name)
         if hasattr(self.options, name):
             return getattr(self.options, name)
         raise ValueError("Unknown attribute: {}".format(name))
+
+    # -- batching ------------------------------------------------------------
+
+    def iterator(self):
+        """The batch iterator."""
+        return self
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._batch_source)
+
+    def _generate_batches(self):
+        """Group records into (metadata, [records]) batches.
+
+        The reader is finished (closed, summary collapsed) as soon as the
+        input is exhausted or the --max-reads quota is reached — before
+        the final partial batch is delivered. A mid-stream reader error
+        finishes the reader and propagates, dropping the partial batch.
+        """
+        quota = None
+        pending = []
+        try:
+            while True:
+                try:
+                    read_index, record = next(self.iterable)
+                except StopIteration:
+                    break
+                if quota is None:
+                    # max_reads may resolve via reader/options delegation,
+                    # so sample it lazily (0 = unlimited)
+                    quota = self.max_reads or 0
+                pending.append(record)
+                hit_quota = quota and read_index >= quota
+                if len(pending) >= self.size or hit_quota:
+                    if hit_quota:
+                        self.finish()
+                    batch = self._assemble(pending)
+                    pending = []
+                    yield batch
+                    if hit_quota:
+                        return
+        except BaseException:
+            self.finish()
+            raise
+        self.finish()
+        if pending:
+            yield self._assemble(pending)
+
+    def _assemble(self, records):
+        """Number the batch."""
+        self.batches += 1
+        meta = dict(index=self.batches, source=0, size=len(records))
+        return (meta, list(records))
 
     # -- summary / lifecycle ---------------------------------------------------
 

@@ -1,13 +1,22 @@
 """The 'trim' command: adapter/quality trimming.
 
 The stack is assembled by :mod:`~atropos_tpu_torch.commands.trim.builder`
-and executed by a turbo runner (:mod:`atropos_tpu_torch.engine.turbo`):
-streaming native parse -> one device step per batch -> native format, for
-interval-expressible configurations, single-end (``TurboTrimRunner``) or
-paired-end with either aligner (``TurboPairedRunner``). Counterpart of
-``atropos_tpu/commands/trim/__init__.py``; the engine, serial, parallel
-and multi-host modes of that module are not part of this package and
-raise :class:`~atropos_tpu_torch.NotPortedError`.
+and executed by one of two modes (counterpart of
+``atropos_tpu/commands/trim/__init__.py``):
+
+- **turbo**: streaming native parse -> one device step per batch ->
+  native format, for interval-expressible configurations, single-end
+  (``TurboTrimRunner``) or paired-end with either aligner
+  (``TurboPairedRunner``) (:mod:`atropos_tpu_torch.engine.turbo`);
+- **serial**: every configuration the turbo runner declines, through the
+  per-record pipeline (:mod:`atropos_tpu_torch.commands.trim.pipeline`)
+  with whole-batch adapter matching on the run's device
+  (:class:`~atropos_tpu_torch.engine.TrimEngine`) where the engine takes
+  the configuration.
+
+The parallel (``--threads``) and multi-host modes of that module, and
+per-record ``--stats`` in the serial mode, raise
+:class:`~atropos_tpu_torch.NotPortedError`.
 """
 import logging
 import textwrap
@@ -16,10 +25,18 @@ from atropos_tpu_torch import NotPortedError, resolve_device
 from atropos_tpu_torch.commands.base import BaseCommandRunner
 from atropos_tpu_torch.commands.trim.builder import TrimStackBuilder
 from atropos_tpu_torch.commands.trim.pipeline import (  # noqa: F401
+    PairedEndTrimPipeline,
     RecordHandler,
+    ResultHandler,
+    ResultHandlerWrapper,
+    SingleEndTrimPipeline,
     StatsRecordHandlerWrapper,
+    TrimPipeline,
     TrimSummary,
+    WorkerResultHandler,
+    WriterResultHandler,
 )
+from atropos_tpu_torch.util import run_interruptible
 
 
 _PAIRING_LABEL = {
@@ -38,8 +55,8 @@ _LEGACY_MODE_WARNING = (
 
 def check_ported(options):
     """Raise :class:`NotPortedError` for every option that selects a
-    path outside the ported turbo slices. Runs before the input is
-    opened, so nothing is read or written for such a request."""
+    path outside the ported slices. Runs before the input is opened, so
+    nothing is read or written for such a request."""
     if options.colorspace:
         raise NotPortedError("colorspace trimming", "engine")
     if options.threads is not None:
@@ -70,6 +87,14 @@ class CommandRunner(BaseCommandRunner):
                 device=resolve_device(options.device),
             )
 
+        self._log_configuration(logger, modifiers)
+        engine = self._build_engine(logger, modifiers, record_handler)
+        return self._run_single_process(record_handler, writers, engine)
+
+    # -- setup helpers ---------------------------------------------------------
+
+    def _log_configuration(self, logger, modifiers):
+        options = self.options
         num_adapters = sum(len(a) for a in modifiers.get_adapters())
         logger.info(
             "Trimming %s adapter%s with at most %.1f%% errors in %s mode ...",
@@ -83,16 +108,53 @@ class CommandRunner(BaseCommandRunner):
         ):
             logger.warning("\n".join(textwrap.wrap(_LEGACY_MODE_WARNING)))
 
+    def _build_engine(self, logger, modifiers, record_handler):
+        """The batched engine on the run's device, when eligible."""
+        if not isinstance(record_handler, RecordHandler):
+            return None
+        from atropos_tpu_torch import engine as engine_mod
+
+        engine = engine_mod.TrimEngine.build(modifiers, self.options)
+        if engine is not None:
+            logger.info("Using batched device engine for adapter matching")
+        else:
+            logger.info(
+                "Scalar pipeline (engine ineligible: %s)",
+                engine_mod.LAST_FALLBACK_REASON,
+            )
+        return engine
+
+    # -- execution modes ---------------------------------------------------------
+
+    def _run_single_process(self, record_handler, writers, engine):
         from atropos_tpu_torch.engine.turbo import (
             TurboPairedRunner,
             TurboTrimRunner,
         )
 
-        # build() returns the runner or raises NotPortedError with the
-        # reason the turbo runner of atropos_tpu would decline for
+        options = self.options
         runner_class = TurboPairedRunner if options.paired else TurboTrimRunner
         turbo = runner_class.build(
             self, record_handler, writers, device=options.device
         )
-        self.summary.update(mode="turbo", threads=1)
-        return turbo.run()
+        if turbo is not None:
+            self.summary.update(mode="turbo", threads=1)
+            return turbo.run()
+
+        if not isinstance(record_handler, RecordHandler):
+            # the reference collects the tables per record here
+            # (StatsRecordHandlerWrapper.handle_record); raised before
+            # the first batch is read or written
+            raise NotPortedError(
+                "--stats on a configuration the turbo runner declines", "engine"
+            )
+        pipeline_class = (
+            PairedEndTrimPipeline if options.paired else SingleEndTrimPipeline
+        )
+        pipeline = pipeline_class(
+            record_handler,
+            WorkerResultHandler(WriterResultHandler(writers)),
+            engine=engine,
+        )
+        self.summary.update(mode="serial", threads=1)
+        return run_interruptible(pipeline, self, raise_on_error=True)

@@ -9,7 +9,6 @@ filter/output registration table) rather than a monolithic method.
 """
 import sys
 
-from atropos_tpu_torch import NotPortedError
 from atropos_tpu_torch.adapters import AdapterParser, BACK
 from atropos_tpu_torch.commands.trim import filters as filt
 from atropos_tpu_torch.commands.trim import modifiers as mod
@@ -214,7 +213,7 @@ class TrimStackBuilder:
             elif preset == "rrbs":
                 chain.add_modifier(mod.RRBSTrimmer)
             elif preset == "swift":
-                raise NotPortedError("--bisulfite swift", "engine")
+                chain.add_modifier(mod.SwiftBisulfiteTrimmer)
             # 'epignome'/'truseq': trimming leads to worse results — no-op
             return
         if preset[0]:
@@ -263,7 +262,12 @@ class TrimStackBuilder:
     def _stage_merge(self, chain):
         options = self.options
         if options.merge_overlapping:
-            raise NotPortedError("--merge-overlapping", "engine")
+            chain.add_modifier(
+                mod.MergeOverlapping,
+                min_overlap=options.merge_min_overlap,
+                error_rate=options.merge_error_rate,
+                mismatch_action=options.correct_mismatches,
+            )
 
     _FIXED_STAGES = (
         _stage_bisulfite,

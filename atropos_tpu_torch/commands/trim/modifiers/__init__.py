@@ -1,15 +1,15 @@
 """Read modifiers: every transformation the trim command can apply.
 
 Organized as: the modifier protocol (``base``), single-read transforms
-(``single``), the adapter cutter (``adapter_cutter``), the insert-match
-adapter cutter of read pairs (``paired``), and — below — the ordered
-containers that hold a configured single-end or paired-end modifier
-chain. All names re-export here; behavior matches the reference
+(``single``), the adapter cutter (``adapter_cutter``), pair-level
+transforms with vectorized error correction (``paired``), and — below —
+the ordered containers that hold a configured single-end or paired-end
+modifier chain. All names re-export here; behavior matches the reference
 (``atropos/commands/trim/modifiers.py``). The turbo runners
 (:mod:`atropos_tpu_torch.engine.turbo`) read each stage's parameters
-from the chain and accumulate its statistics into it. Of the pair-level
-modifiers of ``atropos_tpu/commands/trim/modifiers/paired.py`` only
-``InsertAdapterCutter`` and ``OverwriteRead`` have counterparts here.
+from the chain and accumulate its statistics into it; the per-record
+pipeline calls the chain, with the batched engine
+(:mod:`atropos_tpu_torch.engine`) injecting the adapter matches.
 """
 from atropos_tpu_torch.commands.trim.modifiers.base import (  # noqa: F401
     Modifier,
@@ -36,8 +36,11 @@ from atropos_tpu_torch.commands.trim.modifiers.single import (  # noqa: F401
     ZeroCapper,
 )
 from atropos_tpu_torch.commands.trim.modifiers.paired import (  # noqa: F401
+    ErrorCorrectorMixin,
     InsertAdapterCutter,
+    MergeOverlapping,
     OverwriteRead,
+    SwiftBisulfiteTrimmer,
 )
 
 

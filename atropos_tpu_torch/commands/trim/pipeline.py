@@ -1,17 +1,31 @@
-"""Trim record handler, statistics wrapper and summary.
+"""Trim-pipeline execution machinery.
 
 The turbo runner (:mod:`atropos_tpu_torch.engine.turbo`) routes whole
 batches as interval arithmetic; what it needs from here is the holder of
 the modifier/filter/formatter stacks, whose ``summarize`` feeds the
 report, the ``--stats`` wrapper that holds the pre- and post-trim
 statistics tables the runner fills from its batch matrices, and the
-summary class that derives the fraction/total fields. The per-record
-scalar pipeline and the multi-process result handlers of
-``atropos_tpu/commands/trim/pipeline.py`` are not part of this package.
+summary class that derives the fraction/total fields.
+
+The configurations the turbo runner declines run through the pipeline
+here: a batch flows through the modifier chain (whole-batch through the
+batched engine, :class:`~atropos_tpu_torch.engine.TrimEngine`, or per
+record where the engine declines too) -> filter routing -> formatting
+into a per-batch ``{path: [str]}`` result dict -> a ResultHandler that
+writes it. Counterpart of ``atropos_tpu/commands/trim/pipeline.py`` for
+one process; its parallel pipelines and the order-preserving writer of
+``--threads`` are not part of this package, and neither are per-record
+``--stats`` tables.
 """
+from collections import defaultdict
 from collections.abc import Sequence
 
-from atropos_tpu_torch.commands.base import Summary
+from atropos_tpu_torch.commands.base import (
+    PairedEndPipelineMixin,
+    Pipeline,
+    SingleEndPipelineMixin,
+    Summary,
+)
 from atropos_tpu_torch.commands.stats import (
     PairedEndReadStatistics,
     SingleEndReadStatistics,
@@ -19,12 +33,18 @@ from atropos_tpu_torch.commands.stats import (
 
 
 class RecordHandler:
-    """Holder of the modify -> filter -> format stacks of one run."""
+    """One record (pair) through modify -> filter -> format."""
 
     def __init__(self, modifiers, filters, formatters):
         self.modifiers = modifiers
         self.filters = filters
         self.formatters = formatters
+
+    def handle_record(self, context, read1, read2=None):
+        reads = self.modifiers.modify(read1, read2)
+        dest = self.filters.filter(*reads)
+        self.formatters.format(context["results"], dest, *reads)
+        return (dest, reads)
 
     def summarize(self):
         return dict(
@@ -79,6 +99,127 @@ class StatsRecordHandlerWrapper:
                 for dest, table in self.post.items()
             }
         return summary
+
+# -- result delivery -------------------------------------------------------------
+
+
+class ResultHandler:
+    """Sink for per-batch result dicts."""
+
+    def start(self, worker=None):
+        pass
+
+    def finish(self, total_batches=None):
+        pass
+
+    def write_result(self, batch_num, result):
+        raise NotImplementedError()
+
+
+class ResultHandlerWrapper(ResultHandler):
+    def __init__(self, handler):
+        self.handler = handler
+
+    def start(self, worker):
+        self.handler.start(worker)
+
+    def write_result(self, batch_num, result):
+        self.handler.write_result(batch_num, result)
+
+    def finish(self, total_batches=None):
+        self.handler.finish(total_batches=total_batches)
+
+
+class WorkerResultHandler(ResultHandlerWrapper):
+    """Joins each output's strings into one blob before forwarding."""
+
+    def write_result(self, batch_num, result):
+        self.handler.write_result(
+            batch_num,
+            dict(self.prepare_file(*item) for item in result.items()),
+        )
+
+    def prepare_file(self, path, strings):
+        return (path, "".join(strings))
+
+
+class WriterResultHandler(ResultHandler):
+    """Terminal handler: hands results to a Writers object."""
+
+    def __init__(self, writers, compressed=False):
+        self.writers = writers
+        self.compressed = compressed
+
+    def write_result(self, batch_num, result):
+        self.writers.write_result(result, self.compressed)
+
+    def finish(self, total_batches=None):
+        self.writers.close()
+
+
+# -- the pipeline -----------------------------------------------------------------
+
+
+class TrimPipeline(Pipeline):
+    """Record batches through the trim stack.
+
+    With an attached engine, the whole batch's modifier chain runs through
+    batched matching on the run's device (:mod:`atropos_tpu_torch.engine`);
+    filter routing and formatting are identical either way.
+    """
+
+    def __init__(self, record_handler, result_handler, engine=None):
+        super().__init__()
+        self.record_handler = record_handler
+        self.result_handler = result_handler
+        self.engine = engine
+
+    def start(self, worker=None):
+        self.result_handler.start(worker)
+
+    def add_to_context(self, context):
+        context["results"] = defaultdict(list)
+
+    def handle_records(self, context, records):
+        if self.engine is None:
+            super().handle_records(context, records)
+        else:
+            self._handle_batch_on_engine(context, records)
+        self.result_handler.write_result(context["index"], context["results"])
+
+    def _handle_batch_on_engine(self, context, records):
+        handler = self.record_handler
+        paired = isinstance(self, PairedEndPipelineMixin)
+        bp = context["bp"]
+        if paired:
+            pairs = list(records)
+            for read1, read2 in pairs:
+                bp[0] += len(read1.sequence)
+                bp[1] += len(read2.sequence)
+        else:
+            pairs = [(record, None) for record in records]
+            for record in records:
+                bp[0] += len(record)
+        for read1, read2 in self.engine.modify_batch(pairs):
+            reads = (read1, read2) if paired else (read1,)
+            dest = handler.filters.filter(*reads)
+            handler.formatters.format(context["results"], dest, *reads)
+
+    def handle_reads(self, context, read1, read2=None):
+        return self.record_handler.handle_record(context, read1, read2)
+
+    def finish(self, summary, **kwargs):
+        self.result_handler.finish()
+        super().finish(summary)
+        summary.update(self.record_handler.summarize())
+
+
+class SingleEndTrimPipeline(SingleEndPipelineMixin, TrimPipeline):
+    pass
+
+
+class PairedEndTrimPipeline(PairedEndPipelineMixin, TrimPipeline):
+    pass
 
 
 class TrimSummary(Summary):

@@ -49,9 +49,11 @@ computed from the chunk buffer before the upload). Side files (info,
 rest, wildcard), ``--stats`` (pre/post statistics collected from the
 batch matrices, their position counts on the run's device), ``{name}``
 demultiplexing and ``-w`` mate overwrite run on the runners as in
-``atropos_tpu``. Everything the turbo runners of ``atropos_tpu`` decline,
-and the sharded mesh, the device quality kernels and overlap error
-correction, raise :class:`~atropos_tpu_torch.NotPortedError`.
+``atropos_tpu``. What the turbo runners decline (``build`` returns None)
+runs through the per-record pipeline and its batched engine
+(:mod:`atropos_tpu_torch.engine`), as in ``atropos_tpu``; the sharded
+mesh, the device quality kernels and overlap error correction raise
+:class:`~atropos_tpu_torch.NotPortedError`.
 
 Output is byte-identical to ``atropos_tpu``; all summary statistics
 (per-adapter histograms, trimmed-bp counters, filter counts) are
@@ -66,7 +68,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from atropos_tpu_torch import NotPortedError, resolve_device, runtime
+from atropos_tpu_torch import resolve_device, runtime
 from atropos_tpu_torch.adapters import (
     ANYWHERE,
     FRONT,
@@ -2223,12 +2225,11 @@ class _TurboRunnerBase:
 
     @staticmethod
     def _decline(reason):
-        """The turbo runner of ``atropos_tpu`` hands such a configuration
-        to its batched engine or scalar pipeline; neither exists here."""
-        raise NotPortedError(
-            "a configuration outside the turbo runner ({})".format(reason),
-            "engine",
-        )
+        """``build`` returns None for such a configuration: the trim
+        command then runs it through the per-record pipeline and its
+        batched engine."""
+        logging.getLogger().info("turbo path declined: %s", reason)
+        return None
 
     @staticmethod
     def _unwrap_handler(record_handler):
@@ -2551,8 +2552,8 @@ class TurboTrimRunner(_TurboRunnerBase):
 
     @classmethod
     def build(cls, command_runner, record_handler, writers, device=None):
-        """Return a runner for a turbo-eligible configuration; raise
-        :class:`~atropos_tpu_torch.NotPortedError` for every other."""
+        """Return a runner for a turbo-eligible configuration, None for
+        every other."""
         options = command_runner.options
         if options.paired or options.interleaved_input:
             raise ValueError("paired input goes to TurboPairedRunner")
@@ -2773,9 +2774,8 @@ class TurboPairedRunner(_TurboRunnerBase):
 
     @classmethod
     def build(cls, command_runner, record_handler, writers, device=None):
-        """Return a runner for a turbo-eligible paired configuration;
-        raise :class:`~atropos_tpu_torch.NotPortedError` for every
-        other."""
+        """Return a runner for a turbo-eligible paired configuration,
+        None for every other."""
         options = command_runner.options
         if not options.paired:
             raise ValueError("single-end input goes to TurboTrimRunner")

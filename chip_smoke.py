@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Start the port on the GPU: build, check and time its kernels, and drive
-its single-end and paired-end paths end to end.
+its single-end and paired-end paths end to end, through the turbo runners
+and through the per-record pipeline with its batched engine.
 
 Run from the root of a checkout, with one NVIDIA Hopper card:
 
@@ -26,7 +27,8 @@ object a line:
                 512 reads of 7,328 bases, which ``dp_locate_wide`` serves one
                 warp a read, with indel costs 1, 2, 3 and 100000 in both
                 compare modes; adapters of 1,200 and 2,000 bases whose column
-                lives in global memory): exact equality of all result rows
+                lives in global memory; the batched engine's shapes, 64 and
+                1,024 reads of 64 and 160 bases): exact equality of all result rows
                 (tolerance 0, integers), which instantiation served each, and
                 the warp instantiation's fix-up rounds a column
 4. ``diag_grid``  ``diag_counts_u8`` and ``diag_counts_i32`` against their
@@ -68,10 +70,33 @@ object a line:
                 ``dtype_probe.PLANES``, and N of 1,002 and 16,386 reads, no
                 multiple of any block width), their times and SASS
                 instructions a row, and the probe tool's run on the card
-14. ``goldens``  seven upstream single-end cases (the info file and the
-                demultiplexed outputs among them) and every paired-end case of
-                the ported slice on the card against ``tests/conformance``
-15. ``kernels``  for each kernel: launches on its path (counts set to 0 just
+14. ``goldens``  thirteen upstream single-end cases (the info files and the
+                demultiplexed outputs among them; the last six run through the
+                per-record pipeline) and every paired-end case of the ported
+                slice (``mask_adapter`` through the pipeline, with both
+                aligners) on the card against ``tests/conformance``
+15. ``se_engine_path``  1,000,000 reads of 150 bases (``se_side_path``'s
+                generator) through ``trim -a truseq=... -a nextera=... -a
+                umi=... -n 2 --mask-adapter -y _{name}``: the turbo runner
+                declines it, so the per-record pipeline runs it, its batched
+                engine launching ``dp_locate_word32``; every clean TruSeq
+                copy of at least 20 bases is masked from its offset on
+16. ``pe_engine_path``  500,000 pairs of 2x150 through ``trim --aligner
+                adapter --bisulfite swift``: the pipeline, ``dp_locate_word32``
+17. ``pe_engine_insert_check``  2,048 pairs (150 near-poly-A) through
+                ``--aligner insert -n 3 --mask-adapter`` (``diag_counts_u8``;
+                pairs without an insert match fall back to each mate's scalar
+                ``match_to``) and ``--aligner adapter --merge-overlapping
+                --merged-output`` (each pair aligned by the scalar
+                ``Aligner``): the time of those per-pair host steps. Each
+                engine path prints its wall time and rate, its launches, the
+                changes of the engine's ``BUILD_COUNTS`` and ``MATCH_COUNTS``
+                and its mode
+18. ``cpu_phase``  every ``--device cpu`` check, after the last timed card
+                phase (below): its wall time and each child's seconds. The
+                grids (3 and 4) and the goldens (14), which time nothing,
+                run beside it, after the timed phases
+19. ``kernels``  for each kernel: launches on its path (counts set to 0 just
                 before the path and read just after), error against the plain
                 version, time at the path's shape (``ms``: the median of
                 single launches, each between two events, the wrapper's host
@@ -88,21 +113,32 @@ object a line:
                 planes and the live diagonals, the bytes, and the bound at
                 one operation a compare beside the bound at
                 ``insert_kernel.WORD_OPS`` a word and
-                ``insert_kernel.DIAGONAL_OPS`` a diagonal
-16. the last line: ``{"ok": true, "device": {...}}``
+                ``insert_kernel.DIAGONAL_OPS`` a diagonal; for
+                ``dp_locate_word32`` and ``diag_counts_u8`` also their
+                launches on the engine paths (``engine_launches``)
+20. the last line: ``{"ok": true, "device": {...}}``
 
 Every path whose output the card makes also runs on ``--device cpu`` for a
-prefix of its input, ``(DEPTH + 2) x MAX_BATCH`` = 163,840 reads or pairs:
+prefix of its input (``CPU_CHECK_RECORDS``: 65,536 reads of the main path
+and records of each engine path, ``(DEPTH + 2) x MAX_BATCH`` = 163,840
+reads or pairs of the other paths, all 2,048 pairs of the insert check):
 the CPU's outputs must be byte-identical prefixes of the card's (the side
-files and every demultiplexed file among them); for the side paths the card
-also runs the prefix alone, and its statistics and report must equal the
-CPU's.
+files and every demultiplexed file among them); for the side and engine
+paths the card also runs the prefix alone, and its statistics, summary and
+report must equal the CPU's. The card phases only leave these runs behind
+(the prefix of the input, the card output's prefix, the argv); one phase
+after the last timed card phase runs them in spawned child processes, one
+a host core but the one that runs the untimed card checks beside them
+(the grids, the goldens), largest input first, each child with its share
+of the threads and each checking that it launched no kernel, so that no
+timed card run shares the host with them.
 
 Any phase that fails raises: the script then exits non-zero without the
 last line. Without a usable card it exits non-zero at once.
 """
 import argparse
 import json
+import multiprocessing
 import os
 import shutil
 import sys
@@ -130,6 +166,7 @@ from atropos_tpu_torch.align.insert_kernel import (
     diag_counts_i32,
     diag_counts_u8,
 )
+from atropos_tpu_torch import engine
 from atropos_tpu_torch.commands import get_command
 from atropos_tpu_torch.commands import stats
 from atropos_tpu_torch.engine import turbo
@@ -148,6 +185,14 @@ SIDE_READS = 2000000  # 150-base reads of the single-end side path
 # batches whole, and batches DEPTH + 1 and DEPTH + 2 reuse pinned upload and
 # fetch slots that earlier batches released
 CPU_PAIRS = (turbo.TurboPairedRunner.DEPTH + 2) * turbo.TurboPairedRunner.MAX_BATCH
+MAIN_CPU_READS = 65536  # reads of the main path run again on the CPU
+ENGINE_READS = 1000000  # 150-base reads of the single-end engine path
+ENGINE_PAIRS = 500000  # 2x150 pairs of the paired-end engine path
+ENGINE_CPU_RECORDS = 65536  # records of each engine path run again on the CPU
+# pairs of the engine's insert and merge check (150 of them near-poly-A), all
+# run again on the CPU: the per-pair host steps of these configurations are
+# scalar Python, as in the reference
+INSERT_CHECK_PAIRS, INSERT_CHECK_POLY_A = 2048, 150
 DEVICE = torch.device("cuda", 0)
 HBM_BYTES_PER_SECOND = 3.35e12  # H100 SXM data sheet
 # integer operations an SM can issue a clock: 4 schedulers, one warp
@@ -447,7 +492,18 @@ def grid_configs():
             for iupac in (False, True)
         )
     ]
-    return configs + row_caps + strips
+    # the batched engine's shapes: batches of 64 to 1,024 reads (padded to
+    # powers of two from 64) and lengths of 64 and 160 (multiples of 32)
+    first = 44 + len(row_caps) + len(strips)
+    engine_shapes = [
+        dict(idx=first + i, flag_name=name, flags=flags, place=place, iupac=bool(i % 2),
+             indel_cost=1, e=0.1, m=33, L=L, B=B)
+        for i, ((B, L), (name, flags, place)) in enumerate(zip(
+            ((64, 160), (64, 64), (1024, 160), (1024, 64)),
+            (flag_sets[0], flag_sets[2], flag_sets[0], flag_sets[1]),
+        ))
+    ]
+    return configs + row_caps + strips + engine_shapes
 
 
 def make_adapter(rng, m, iupac):
@@ -481,7 +537,39 @@ def strip_counts(aligner, reads_T, lens):
                 lane_row_slots=32 * (how.row_cap * columns + fix_rows))
 
 
+def grid_inputs(seed, cfg):
+    """One grid configuration's aligner on the card and its reads as the
+    kernels take them: (aligner, reads_T, lens)."""
+    rng = np.random.default_rng([seed, 1, cfg["idx"]])
+    adapter = make_adapter(rng, cfg["m"], cfg["iupac"])
+    aligner = CudaAligner(
+        adapter, cfg["e"], cfg["flags"], wildcard_ref=cfg["iupac"],
+        min_overlap=3, indel_cost=cfg["indel_cost"], device=DEVICE,
+    )
+    reads, lengths = random_batch(rng, cfg["B"], cfg["L"], adapter, cfg["place"])
+    return (aligner,) + device_inputs(aligner, reads, lengths)
+
+
+def phase_global_column(seed):
+    """The grid's two adapters whose column does not fit shared memory even
+    for one warp (1,200 bases in the 64-bit word, 2,000 in the 32-bit one),
+    timed where the kernel keeps the column in global memory, for PERF.md;
+    the grid compares them again with the plain version."""
+    timed = {}
+    for cfg in grid_configs():
+        if cfg.get("big"):
+            aligner, reads_T, lens = grid_inputs(seed, cfg)
+            kernel = dp_locate_word32 if dp_locate_word32.fits(
+                cfg["m"], aligner.k, cfg["L"]) else dp_locate_wide
+            check(kernel.instantiation(cfg["m"], aligner.k, cfg["L"]).kind == "global", cfg)
+            timed[kernel.name] = time_kernel(kernel, aligner, reads_T, lens, launches=5)
+    check(sorted(timed) == ["dp_locate_wide", "dp_locate_word32"], timed)
+    return timed
+
+
 def phase_grid(seed):
+    """Every grid configuration's kernels against the plain version on the
+    card (no timing: this phase runs beside the CPU phase)."""
     began = time.perf_counter()
     compared = {"dp_locate_word32": 0, "dp_locate_wide": 0}
     max_err = {"dp_locate_word32": 0, "dp_locate_wide": 0}
@@ -491,14 +579,7 @@ def phase_grid(seed):
     rounds = {}  # the strips' fix-up rounds, by configuration
     found_total = 0
     for cfg in grid_configs():
-        rng = np.random.default_rng([seed, 1, cfg["idx"]])
-        adapter = make_adapter(rng, cfg["m"], cfg["iupac"])
-        aligner = CudaAligner(
-            adapter, cfg["e"], cfg["flags"], wildcard_ref=cfg["iupac"],
-            min_overlap=3, indel_cost=cfg["indel_cost"], device=DEVICE,
-        )
-        reads, lengths = random_batch(rng, cfg["B"], cfg["L"], adapter, cfg["place"])
-        reads_T, lens = device_inputs(aligner, reads, lengths)
+        aligner, reads_T, lens = grid_inputs(seed, cfg)
         params = aligner._dp_params()
         expected = _locate_kernel(
             reads_T, lens, aligner.ref_bytes, aligner.thresholds, **params
@@ -538,12 +619,10 @@ def phase_grid(seed):
             compared[kernel.name] += 1
             if cfg.get("big"):
                 # the shape the wrapper once refused: its column now lives
-                # in global memory, and it is timed there for PERF.md
+                # in global memory (timed by phase_global_column)
                 how = kernel.instantiation(cfg["m"], aligner.k, cfg["L"])
                 check(how.kind == "global", (kernel.name, "global column", cfg, how))
-                global_column[kernel.name] = time_kernel(
-                    kernel, aligner, reads_T, lens, launches=5
-                )
+                global_column[kernel.name] = cfg["idx"]
         found_total += int(expected[0].sum())
     check(
         compared["dp_locate_word32"] >= 32 and compared["dp_locate_wide"] >= 15,
@@ -567,10 +646,10 @@ def phase_grid(seed):
             "reads_with_a_match": found_total,
             "tolerance": 0,
             "seconds": time.perf_counter() - began,
-            "global_column": global_column,
+            "global_column_configurations": global_column,
         }
     })
-    return max_err, global_column
+    return max_err
 
 
 def time_kernel(kernel, aligner, reads_T, lens, launches=20):
@@ -888,6 +967,7 @@ def output_lengths(path, fasta=False):
 def run_trim(argv, device):
     """One command line through the port's entry point, with every
     kernel's launch count set to 0 just before and read just after."""
+    check_device_phase(device)
     cuda_kernel.reset_launch_counts()
     insert_kernel.reset_launch_counts()
     began = time.perf_counter()
@@ -927,19 +1007,17 @@ def phase_main_path(work, seed, n_reads, runs):
     check(wrong == 0, "{} reads with a clean adapter were not cut at its offset".format(wrong))
     trimmed = int((lengths < 150).sum())
 
-    # the first 65,536 reads again on the CPU: a byte-identical prefix
+    # the first 65,536 reads again on the CPU (in the CPU phase): a
+    # byte-identical prefix
+    records = CPU_CHECK_RECORDS["main_path"]
+    prefix = write_prefix(fastq, records, os.path.join(work, "main_prefix.fastq"))
+    keep_card_prefix(out, records)
     cpu_out = os.path.join(work, "trimmed_cpu.fastq")
-    cpu_argv = ["trim", "-a", TRUSEQ, "-se", fastq, "-o", cpu_out, "--max-reads", "65536"] + tail
-    cpu_seconds, cpu_counts, cpu_run = run_trim(cpu_argv, "cpu")
-    check(
-        cpu_run["device"] == "cpu" and sum(cpu_counts.values()) == 0,
-        'cpu_run["device"] == "cpu" and sum(cpu_counts.values()) == 0',
-    )
-    with open(cpu_out, "rb") as handle:
-        cpu_bytes = handle.read()
-    with open(out, "rb") as handle:
-        gpu_prefix = handle.read(len(cpu_bytes))
-    check(len(cpu_bytes) > 0 and cpu_bytes == gpu_prefix, "CPU and GPU outputs differ")
+    defer_cpu("main_path", [dict(
+        argv=["trim", "-a", TRUSEQ, "-se", prefix, "-o", cpu_out,
+              "--max-reads", str(records)] + tail,
+        outs=[(cpu_out, out, None)], expect={"device": "cpu", "reads": records},
+    )])
 
     emit({
         "main_path": {
@@ -965,11 +1043,8 @@ def phase_main_path(work, seed, n_reads, runs):
                 "format (writer thread)": run["format_seconds"],
                 "write (writer thread)": run["write_seconds"],
             },
-            "cpu_check": {"reads": 65536, "seconds": cpu_seconds, "identical_prefix_bytes": len(cpu_bytes)},
         }
     })
-    os.remove(out)
-    os.remove(cpu_out)
     return launches, fastq
 
 
@@ -1202,30 +1277,28 @@ def pe_argv(aligner, in1, in2, out1, out2, work, report="report_pe.txt", named=F
     ]
 
 
-def compare_with_cpu(argv, outs, cpu_outs, card_run):
-    """The same command line on ``cpu`` for the first ``CPU_PAIRS`` pairs:
-    its outputs must be the byte-identical prefix of the card's. The card's
-    run must have had more batches than the prefix holds whole, so that
-    the prefix reaches batches whose pinned slots were reused."""
+def defer_pair_check(tag, argv, outs, card_run, work):
+    """Leave to the CPU phase the same command line on ``cpu`` for the
+    first ``CPU_PAIRS`` pairs: its outputs must be the byte-identical prefix
+    of the card's. The card's run must have had more batches than the
+    prefix holds whole, so that the prefix reaches batches whose pinned
+    slots were reused."""
     check(card_run["batches"] > turbo.TurboPairedRunner.DEPTH + 2, card_run)
-    pairs = CPU_PAIRS
-    cpu_argv = [cpu_outs[outs.index(a)] if a in outs else a for a in argv]
-    cpu_argv += ["--max-reads", str(pairs)]
-    seconds, counts, run = run_trim(cpu_argv, "cpu")
-    check(run["device"] == "cpu" and run["pairs"] == pairs, run)
-    check(sum(counts.values()) == 0, counts)
-    sizes = []
-    for out, cpu_out in zip(outs, cpu_outs):
-        with open(cpu_out, "rb") as handle:
-            cpu_bytes = handle.read()
-        with open(out, "rb") as handle:
-            card_prefix = handle.read(len(cpu_bytes))
-        check(len(cpu_bytes) > 0 and cpu_bytes == card_prefix,
-              "CPU and GPU outputs differ: " + out)
-        sizes.append(len(cpu_bytes))
-        os.remove(cpu_out)
-    return {"pairs": pairs, "seconds": seconds, "identical_prefix_bytes": sizes,
-            "slot_overflow_pairs": run["slot_overflow_pairs"]}
+    pairs = CPU_CHECK_RECORDS[tag]
+    cpu_argv = list(argv)
+    for mate, flag in enumerate(("-pe1", "-pe2"), 1):
+        at = cpu_argv.index(flag) + 1
+        cpu_argv[at] = write_prefix(
+            cpu_argv[at], pairs, os.path.join(work, "{}_prefix.{}.fastq".format(tag, mate)))
+    cpu_outs = [out + ".cpu" for out in outs]
+    cpu_argv = [cpu_outs[outs.index(a)] if a in outs else a for a in cpu_argv]
+    for out in outs:
+        keep_card_prefix(out, pairs)
+    defer_cpu(tag, [dict(
+        argv=cpu_argv + ["--max-reads", str(pairs)],
+        outs=[(cpu_out, out, None) for cpu_out, out in zip(cpu_outs, outs)],
+        expect={"device": "cpu", "pairs": pairs}, report_run=("slot_overflow_pairs",),
+    )])
 
 
 def split_seconds(run):
@@ -1251,7 +1324,7 @@ def phase_pe_insert(work, seed, n_pairs, read_len, mean, kernel, poly_a):
     began = time.perf_counter()
     inserts, _ = write_pairs(in1, in2, rng, n_pairs, read_len, mean, 70, poly_a)
     made = time.perf_counter() - began
-    outs = [os.path.join(work, "trimmed_pe.{}.fastq".format(i)) for i in (1, 2)]
+    outs = [os.path.join(work, "trimmed_pe{}.{}.fastq".format(read_len, i)) for i in (1, 2)]
     argv = pe_argv("insert", in1, in2, *outs, work)
     seconds, counts, run = run_trim(argv, "cuda")
     other = diag_counts_i32 if kernel is diag_counts_u8 else diag_counts_u8
@@ -1271,9 +1344,8 @@ def phase_pe_insert(work, seed, n_pairs, read_len, mean, kernel, poly_a):
     share = float(at_insert.mean())
     check(share > 0.97, ("read-through pairs cut at their insert", share))
     check(np.all(len1[inserts >= read_len] <= read_len), "a long insert grew")
-    cpu = compare_with_cpu(argv, outs, [o + ".cpu" for o in outs], run)
-    for out in outs:
-        os.remove(out)
+    tag = "pe_insert_path" if kernel is diag_counts_u8 else "pe_insert_wide_path"
+    defer_pair_check(tag, argv, outs, run, work)
     return dict(
         argv="trim --aligner insert -a TRUSEQ -A TRUSEQ2 -pe1 -pe2 -o -p",
         pairs=n_pairs, read_length=read_len, insert_mean=mean, insert_sd=70,
@@ -1282,7 +1354,7 @@ def phase_pe_insert(work, seed, n_pairs, read_len, mean, kernel, poly_a):
         batches=run["batches"], launches=counts,
         slot_overflow_pairs=run["slot_overflow_pairs"],
         read_through_pairs=int(through.sum()), cut_at_insert_share=share,
-        split_seconds=split_seconds(run), cpu_check=cpu,
+        split_seconds=split_seconds(run),
     ), (in1, in2)
 
 
@@ -1297,14 +1369,11 @@ def phase_pe_adapter(work, inputs, n_pairs):
           (counts, run))
     check(run["device_aligners"] == 2, run)
     check(counts["diag_counts_u8"] == counts["diag_counts_i32"] == 0, counts)
-    cpu = compare_with_cpu(argv, outs, [o + ".cpu" for o in outs], run)
-    for out in outs:
-        os.remove(out)
+    defer_pair_check("pe_adapter_path", argv, outs, run, work)
     return dict(
         argv="trim --aligner adapter -a TRUSEQ -A TRUSEQ2 -pe1 -pe2 -o -p",
         pairs=n_pairs, seconds=seconds, pairs_per_second=n_pairs / seconds,
         batches=run["batches"], launches=counts, split_seconds=split_seconds(run),
-        cpu_check=cpu,
     )
 
 
@@ -1325,8 +1394,9 @@ def write_side_fastq(path, rng, n_reads, read_len=150, chunk=250000):
     ``SIDE_ADAPTERS`` at a random offset (cut off at the read's end; the
     UMI adapter with random bases in its N run), a quarter carry none; 1 %
     substitutions over every read. Returns the adapter index of each read
-    (3: none)."""
-    kinds_all = []
+    (3: none), the offset of its copy, and whether no substitution fell
+    into the copy's bases inside the read."""
+    kinds_all, offsets_all, clean_all = [], [], []
     with open(path, "wb") as out:
         for first in range(0, n_reads, chunk):
             count = min(chunk, n_reads - first)
@@ -1347,8 +1417,13 @@ def write_side_fastq(path, rng, n_reads, read_len=150, chunk=250000):
             reads = np.where(subs, BASES[rng.integers(0, 4, (count, read_len))], reads)
             quals = (33 + rng.integers(2, 41, (count, read_len))).astype(np.uint8)
             out.write(fastq_block(np.arange(first, first + count), reads.astype(np.uint8), quals))
+            lengths = np.array([len(seq) for _, seq in SIDE_ADAPTERS])[np.minimum(kinds, 2)]
+            cols = np.arange(read_len)[None, :]
+            inside = (cols >= offsets[:, None]) & (cols < (offsets + lengths)[:, None])
             kinds_all.append(kinds)
-    return np.concatenate(kinds_all)
+            offsets_all.append(offsets)
+            clean_all.append(~(subs & inside).any(axis=1))
+    return np.concatenate(kinds_all), np.concatenate(offsets_all), np.concatenate(clean_all)
 
 
 def write_prefix(path, records, out_path):
@@ -1359,13 +1434,38 @@ def write_prefix(path, records, out_path):
     return out_path
 
 
+def keep_card_prefix(path, records):
+    """Cut the card's output ``path`` in place to what the first
+    ``records`` records of the input can have made: at most eight lines a
+    record (four of a FASTQ record; no side file of these paths writes more
+    than two lines a record). The CPU phase compares the CPU's output with
+    the prefix of this copy; a side file the card did not write stays
+    absent."""
+    if not os.path.exists(path):
+        return
+    kept = os.path.join(os.path.dirname(path), ".keep_" + os.path.basename(path))
+    with open(path, "rb") as src, open(kept, "wb") as dst:
+        for _ in range(8 * records):
+            line = src.readline()
+            if not line:
+                break
+            dst.write(line)
+    os.replace(kept, path)
+
+
 def run_trim_summary(argv, device):
     """One command line through the trim command's entry point, as
-    :func:`run_trim` does, also returning the run's summary and how many
-    position counts of the statistics ran on each device type."""
+    :func:`run_trim` does, also returning the run's summary, its mode, how
+    many position counts of the statistics ran on each device type and
+    the changes of the batched engine's ``BUILD_COUNTS`` and
+    ``MATCH_COUNTS``. ``run`` is the turbo runner's record, None for a
+    run of the per-record pipeline."""
+    check_device_phase(device)
     cuda_kernel.reset_launch_counts()
     insert_kernel.reset_launch_counts()
     stats_before = dict(stats.DEVICE_STATS_COUNTS)
+    engine_before = (dict(engine.BUILD_COUNTS), dict(engine.MATCH_COUNTS))
+    turbo.LAST_RUN.clear()
     began = time.perf_counter()
     retcode, summary = get_command("trim").execute(argv[1:], device=device)
     seconds = time.perf_counter() - began
@@ -1373,10 +1473,16 @@ def run_trim_summary(argv, device):
     if retcode != 0 or "exception" in summary:
         raise RuntimeError("trim failed ({}): {} {}".format(
             retcode, argv, summary.get("exception")))
-    stats_counts = {
-        key: stats.DEVICE_STATS_COUNTS[key] - stats_before[key] for key in stats_before
-    }
-    return seconds, counts, dict(turbo.LAST_RUN), summary, stats_counts
+    return dict(
+        seconds=seconds, counts=counts, mode=summary["mode"], summary=summary,
+        run=dict(turbo.LAST_RUN) if summary["mode"] == "turbo" else None,
+        stats_counts={key: stats.DEVICE_STATS_COUNTS[key] - stats_before[key]
+                      for key in stats_before},
+        build_counts={key: engine.BUILD_COUNTS[key] - engine_before[0][key]
+                      for key in engine_before[0]},
+        match_counts={key: engine.MATCH_COUNTS[key] - engine_before[1][key]
+                      for key in engine_before[1]},
+    )
 
 
 def _plain_json(value):
@@ -1391,56 +1497,230 @@ def _report_sections(path):
     return data[data.index(b"--------\nTrimming"):]
 
 
-def prefix_checks(make_argv, inputs, card_outs, work, tag):
-    """The side path's checks against ``--device cpu``: the first
-    ``PREFIX_RECORDS`` records of ``inputs`` through the CPU, whose every output
-    must be a byte-identical prefix of the card's full run
-    (``card_outs``); and the same prefix through the card alone, whose
-    statistics, report and summary must equal the CPU's. ``make_argv``
-    (inputs, folder) -> (argv, outputs, report)."""
+SUMMARY_KEYS = ("pre", "post", "trim")
+
+
+def prefix_checks(make_argv, inputs, card_outs, work, tag, run_equal=()):
+    """The path's checks against ``--device cpu``: the first records of
+    ``inputs`` (``CPU_CHECK_RECORDS[tag]``) run alone on the card now,
+    and on the CPU in the CPU phase, whose every output must be a
+    byte-identical prefix of the card's full run (``card_outs``) and whose
+    statistics, report and summary must equal the card's prefix run's.
+    ``make_argv`` (inputs, folder) -> (argv, outputs, report); the CPU's
+    run must also equal the card's prefix run in the fields ``run_equal``
+    of the turbo runner's record. Returns a record of the card's prefix
+    run, and that run."""
+    records = CPU_CHECK_RECORDS[tag]
     prefixes = [
-        write_prefix(path, PREFIX_RECORDS,
+        write_prefix(path, records,
                      os.path.join(work, "{}_prefix.{}.fastq".format(tag, i)))
         for i, path in enumerate(inputs)
     ]
-    runs = {}
-    for device in ("cpu", "cuda"):
-        folder = os.path.join(work, "{}_{}".format(tag, device))
+    folders = {device: os.path.join(work, "{}_{}".format(tag, device))
+               for device in ("cpu", "cuda")}
+    for folder in folders.values():
         os.makedirs(folder)
-        argv, outs, report = make_argv(prefixes, folder)
-        seconds, counts, run, summary, stats_counts = run_trim_summary(argv, device)
-        if device == "cpu":
-            check(sum(counts.values()) == 0, counts)
-        runs[device] = dict(seconds=seconds, run=run, outs=outs, report=report,
-                            summary=summary, stats_counts=stats_counts)
-    cpu, card = runs["cpu"], runs["cuda"]
-    check(cpu["stats_counts"]["cuda"] == 0, cpu["stats_counts"])
+    argv, outs, report = make_argv(prefixes, folders["cuda"])
+    card = run_trim_summary(argv, "cuda")
+    if "pre" in card["summary"] or "post" in card["summary"]:
+        check(card["stats_counts"]["cuda"] > 0, card["stats_counts"])
+    for path in card_outs:
+        keep_card_prefix(path, records)
+    cpu_argv, cpu_outs, cpu_report = make_argv(prefixes, folders["cpu"])
+    defer_cpu(tag, [dict(
+        argv=cpu_argv, report=cpu_report, outs=list(zip(cpu_outs, card_outs, outs)),
+        mode=card["mode"],
+        summary={key: _plain_json(card["summary"].get(key)) for key in SUMMARY_KEYS},
+        report_sections=_report_sections(report),
+        run_equal={key: card["run"][key] for key in run_equal},
+    )])
+    return {
+        "records": records, "card_prefix_seconds": card["seconds"],
+        "stats_counts_on_the_card_prefix": card["stats_counts"],
+    }, card
+
+
+# -- the --device cpu checks: one phase after the card's, in child processes --
+
+#: every path whose output the card makes, and the records (reads or pairs)
+#: of its input that the CPU runs again: each path has exactly one entry in
+#: the CPU phase (the counts the checks had when each ran inside its phase)
+CPU_CHECK_RECORDS = {
+    "main_path": MAIN_CPU_READS,
+    "pe_insert_path": CPU_PAIRS,
+    "pe_adapter_path": CPU_PAIRS,
+    "pe_side_path": PREFIX_RECORDS,
+    "pe_overwrite_path": PREFIX_RECORDS,
+    "pe_insert_wide_path": CPU_PAIRS,
+    "se_side_path": PREFIX_RECORDS,
+    "se_engine_path": ENGINE_CPU_RECORDS,
+    "pe_engine_path": ENGINE_CPU_RECORDS,
+    "pe_engine_insert_check": INSERT_CHECK_PAIRS,
+}
+#: the CPU checks the card phases left for the CPU phase
+CPU_PENDING = []
+#: set in the CPU phase's children, the only processes that run on the CPU:
+#: a card phase that ran a CPU check would share the host with its timing
+_IN_CPU_CHILD = False
+#: the card phases that time nothing, and so run beside the CPU phase
+UNTIMED_PHASES = ("phase_grid", "phase_diag_grid", "phase_goldens")
+
+
+def check_device_phase(device):
+    """A ``--device cpu`` run belongs to a child of the CPU phase, never to
+    a card phase."""
+    check((torch.device(device).type == "cpu") == _IN_CPU_CHILD,
+          "a {} run in {}".format(device, "the CPU phase" if _IN_CPU_CHILD else "a card phase"))
+
+
+def defer_cpu(tag, runs):
+    """Leave ``tag``'s ``--device cpu`` check to the CPU phase. ``runs``,
+    one dict a command line: ``argv`` (its outputs the CPU's), ``outs``
+    [(CPU output, the card's output or its kept prefix, the card's prefix
+    run's output or None)], and what the CPU's run must give: ``mode``
+    ("turbo" unless given), ``expect`` (fields of the turbo runner's
+    record), ``summary`` and ``report_sections`` (the card's prefix run's),
+    ``run_equal`` (fields of the card's prefix run's record), ``whole``
+    (the card's outputs are whole, not prefixes). Each run's report goes to
+    a file of its own (``report``), as the children run side by side."""
+    check(tag in CPU_CHECK_RECORDS, tag)
+    check(all(job["tag"] != tag for job in CPU_PENDING), ("a second CPU check", tag))
+    for i, spec in enumerate(runs):
+        at = spec["argv"].index("--report-file") + 1
+        if "report" not in spec:
+            spec["report"] = os.path.join(
+                os.path.dirname(spec["argv"][at]), "cpu_{}_{}.report.txt".format(tag, i))
+        spec["argv"][at] = spec["report"]
+    CPU_PENDING.append(dict(tag=tag, records=CPU_CHECK_RECORDS[tag], runs=runs))
+
+
+def cpu_child(tag, argvs, threads):
+    """One path's CPU check, in a spawned child of the CPU phase with
+    ``threads`` of the host's threads: each command line on ``cpu``, which
+    launches no kernel (the launch counts are per process, so the child
+    checks its own; a child may take several checks one after another).
+    Returns what the parent compares."""
+    global _IN_CPU_CHILD
+    _IN_CPU_CHILD = True
+    torch.set_num_threads(threads)
+    began = time.perf_counter()
+    runs = []
+    for argv in argvs:
+        res = run_trim_summary(argv, "cpu")
+        check(sum(res["counts"].values()) == 0, (tag, res["counts"]))
+        check(res["stats_counts"]["cuda"] == 0, (tag, res["stats_counts"]))
+        check(res["match_counts"]["scalar_reads"] == 0, (tag, res["match_counts"]))
+        summary = res.pop("summary")
+        res["summary"] = {key: _plain_json(summary.get(key)) for key in SUMMARY_KEYS}
+        res["report_sections"] = _report_sections(argv[argv.index("--report-file") + 1])
+        runs.append(res)
+    return dict(tag=tag, seconds=time.perf_counter() - began, runs=runs)
+
+
+def compare_cpu_run(tag, spec, res):
+    """The comparisons of one CPU run with the card's, as each path made
+    them when its check ran inside its phase."""
+    check(res["mode"] == spec.get("mode", "turbo"), (tag, res["mode"]))
+    for key, value in spec.get("expect", {}).items():
+        check(res["run"][key] == value, (tag, key, res["run"][key], value))
+    for key, value in spec.get("run_equal", {}).items():
+        check(res["run"][key] == value > 0, (tag, key, res["run"][key], value))
+    if "summary" in spec:
+        check(res["summary"] == spec["summary"],
+              tag + ": the card's and the CPU's summaries differ on the prefix")
+        check(res["report_sections"] == spec["report_sections"],
+              tag + ": the card's and the CPU's reports differ on the prefix")
     sizes = {}
-    for cpu_out, card_prefix_out, card_out in zip(cpu["outs"], card["outs"], card_outs):
+    for cpu_out, card_out, card_prefix_out in spec["outs"]:
         if not os.path.exists(cpu_out):
             # a side file with no rows in the prefix is not written
-            check(not os.path.exists(card_prefix_out), card_prefix_out)
+            check(card_prefix_out is not None and not os.path.exists(card_prefix_out),
+                  (tag, cpu_out))
             continue
         with open(cpu_out, "rb") as handle:
             cpu_bytes = handle.read()
         with open(card_out, "rb") as handle:
-            card_prefix = handle.read(len(cpu_bytes))
-        check(cpu_bytes == card_prefix, "CPU and GPU outputs differ: " + card_out)
+            card_bytes = handle.read(len(cpu_bytes) + 1)
+        if spec.get("whole"):
+            check(cpu_bytes == card_bytes, "CPU and GPU outputs differ: " + card_out)
+        else:
+            check(len(cpu_bytes) > 0 and cpu_bytes == card_bytes[: len(cpu_bytes)],
+                  "CPU and GPU outputs differ: " + card_out)
         sizes[os.path.basename(card_out)] = len(cpu_bytes)
-    for key in ("pre", "post", "trim"):
-        check(_plain_json(cpu["summary"].get(key)) == _plain_json(card["summary"].get(key)),
-              "{}: the card's and the CPU's '{}' differ on the prefix".format(tag, key))
-    check(_report_sections(cpu["report"]) == _report_sections(card["report"]),
-          tag + ": the card's and the CPU's reports differ on the prefix")
-    if "pre" in card["summary"] or "post" in card["summary"]:
-        check(card["stats_counts"]["cuda"] > 0, card["stats_counts"])
-    for prefix in prefixes:
-        os.remove(prefix)
-    return {
-        "records": PREFIX_RECORDS, "cpu_seconds": cpu["seconds"],
-        "card_prefix_seconds": card["seconds"], "identical_prefix_bytes": sizes,
-        "stats_counts_on_the_card_prefix": card["stats_counts"],
-    }, runs
+        os.remove(cpu_out)
+    return dict(
+        seconds=res["seconds"], identical_prefix_bytes=sizes,
+        **{key: res["run"][key] for key in spec.get("report_run", ())},
+    )
+
+
+def input_bytes(job):
+    """The bytes of a CPU check's input files: the measure of its work
+    that orders the checks."""
+    total = 0
+    for spec in job["runs"]:
+        argv = spec["argv"]
+        total += sum(os.path.getsize(argv[i + 1]) for i, arg in enumerate(argv)
+                     if arg in ("-se", "-pe1", "-pe2", "-l") and argv[i + 1] != "-")
+    return total
+
+
+def start_cpu_phase():
+    """Start every ``--device cpu`` check the card phases left, after the
+    last timed card phase so that none shares the host with a timing: in
+    spawned child processes, one a host core but the one that runs the
+    untimed card checks (the grids, the goldens) meanwhile, each child with
+    its share of the threads, and the checks handed out largest input first
+    (a child takes the next check when it is done with one).
+    :func:`finish_cpu_phase` waits for them and makes the comparisons each
+    path made when its check ran inside its phase, on the same records."""
+    jobs = sorted(CPU_PENDING, key=input_bytes, reverse=True)
+    check(sorted(job["tag"] for job in jobs) == sorted(CPU_CHECK_RECORDS),
+          ("CPU checks left by the card phases", [job["tag"] for job in jobs]))
+    cores = max(1, (os.cpu_count() or 1) - 1)
+    children = min(len(jobs), cores)
+    threads = max(1, cores // children)
+    began = time.perf_counter()
+    pool = multiprocessing.get_context("spawn").Pool(children)
+    pending = pool.starmap_async(cpu_child, [
+        (job["tag"], [spec["argv"] for spec in job["runs"]], threads) for job in jobs
+    ], chunksize=1)
+    return dict(jobs=jobs, pool=pool, pending=pending, began=began, children=children,
+                threads=threads)
+
+
+def stop_cpu_phase(cpu):
+    """Stop the CPU phase's children, whether or not they finished."""
+    cpu["pool"].terminate()
+    cpu["pool"].join()
+
+
+def finish_cpu_phase(cpu):
+    """Wait for the CPU phase's children, compare, and print the phase's
+    line: its wall time and each child's seconds. Returns the wall time."""
+    try:
+        results = cpu["pending"].get()
+    finally:
+        cpu["pool"].close()
+        cpu["pool"].join()
+    wall = time.perf_counter() - cpu["began"]
+    checks = {}
+    for job, result in zip(cpu["jobs"], results):
+        check(result["tag"] == job["tag"], (result["tag"], job["tag"]))
+        runs = [compare_cpu_run(job["tag"], spec, res)
+                for spec, res in zip(job["runs"], result["runs"])]
+        checks[job["tag"]] = dict(records=job["records"], runs=runs)
+    CPU_PENDING.clear()
+    emit({"cpu_phase": {
+        "seconds": wall, "children": cpu["children"], "threads_per_child": cpu["threads"],
+        "order": [job["tag"] for job in cpu["jobs"]],
+        "child_seconds": {result["tag"]: result["seconds"] for result in results},
+        "checks": checks,
+    }})
+    return wall
+
+
+# -- the side paths' phases ------------------------------------------------------
 
 
 def count_records(path):
@@ -1456,7 +1736,7 @@ def phase_se_side(work, seed, n_reads):
     rng = np.random.default_rng([seed, 9])
     fastq = os.path.join(work, "side.fastq")
     began = time.perf_counter()
-    kinds = write_side_fastq(fastq, rng, n_reads)
+    kinds, _, _ = write_side_fastq(fastq, rng, n_reads)
     made = time.perf_counter() - began
 
     def make_argv(inputs, folder):
@@ -1475,7 +1755,9 @@ def phase_se_side(work, seed, n_reads):
     folder = os.path.join(work, "se_side_card")
     os.makedirs(folder)
     argv, outs, _ = make_argv([fastq], folder)
-    seconds, counts, run, summary, stats_counts = run_trim_summary(argv, "cuda")
+    res = run_trim_summary(argv, "cuda")
+    seconds, counts, run, summary, stats_counts = (
+        res["seconds"], res["counts"], res["run"], res["summary"], res["stats_counts"])
     check(run["device"].startswith("cuda") and run["reads"] == n_reads, run)
     check(counts["dp_locate_word32"] == run["batches"] * run["device_aligners"] > 0, (counts, run))
     check(run["device_aligners"] == len(SIDE_ADAPTERS), run)
@@ -1488,17 +1770,15 @@ def phase_se_side(work, seed, n_reads):
     for idx, (name, _) in enumerate(SIDE_ADAPTERS):
         check(per_name["out.{}.fastq".format(name)] > int((kinds == idx).sum()) // 2, per_name)
     check(os.path.getsize(outs[-3]) > 0, "empty info file")
-    cpu, runs = prefix_checks(make_argv, [fastq], outs, work, "se_side")
+    prefix, _ = prefix_checks(make_argv, [fastq], outs, work, "se_side_path")
     os.remove(fastq)
-    shutil.rmtree(folder, ignore_errors=True)
     return dict(
         argv="trim -a truseq=... -a nextera=... -a umi=... -se IN -o out.{name}.fastq "
              "--info-file -r --wildcard-file --stats both",
         reads=n_reads, read_length=150, make_input_seconds=made, seconds=seconds,
         reads_per_second=n_reads / seconds, batches=run["batches"], launches=counts,
         records_per_name=per_name, stats_counts=stats_counts,
-        split_seconds=split_seconds(run),
-        cpu_check=cpu,
+        split_seconds=split_seconds(run), prefix_check=prefix,
     )
 
 
@@ -1517,7 +1797,9 @@ def phase_pe_side(work, inputs, n_pairs):
     folder = os.path.join(work, "pe_side_card")
     os.makedirs(folder)
     argv, outs, _ = make_argv(inputs, folder)
-    seconds, counts, run, summary, stats_counts = run_trim_summary(argv, "cuda")
+    res = run_trim_summary(argv, "cuda")
+    seconds, counts, run, summary, stats_counts = (
+        res["seconds"], res["counts"], res["run"], res["summary"], res["stats_counts"])
     check(run["device"].startswith("cuda") and run["pairs"] == n_pairs, run)
     check(run["aligner"] == "insert", run)
     check(counts["diag_counts_u8"] == run["batches"] > 0, (counts, run))
@@ -1525,14 +1807,13 @@ def phase_pe_side(work, inputs, n_pairs):
     check(stats_counts["cuda"] > 0 and stats_counts["cpu"] == 0, stats_counts)
     pre = next(iter(summary["pre"].values()))
     check(pre["read1"]["counts"] == pre["read2"]["counts"] == n_pairs, "pre-trim statistics")
-    cpu, _ = prefix_checks(make_argv, inputs, outs, work, "pe_side")
-    shutil.rmtree(folder, ignore_errors=True)
+    prefix, _ = prefix_checks(make_argv, inputs, outs, work, "pe_side_path")
     return dict(
         argv="trim --aligner insert -a TRUSEQ -A TRUSEQ2 -pe1 -pe2 -o -p --stats both "
              "--info-file -r",
         pairs=n_pairs, seconds=seconds, pairs_per_second=n_pairs / seconds,
         batches=run["batches"], launches=counts, stats_counts=stats_counts,
-        split_seconds=split_seconds(run), cpu_check=cpu,
+        split_seconds=split_seconds(run), prefix_check=prefix,
     )
 
 
@@ -1554,26 +1835,302 @@ def phase_pe_overwrite(work, seed, n_pairs):
     folder = os.path.join(work, "pe_overwrite_card")
     os.makedirs(folder)
     argv, outs, _ = make_argv(inputs, folder)
-    seconds, counts, run, _, _ = run_trim_summary(argv, "cuda")
+    res = run_trim_summary(argv, "cuda")
+    seconds, counts, run = res["seconds"], res["counts"], res["run"]
     check(run["device"].startswith("cuda") and run["pairs"] == n_pairs, run)
     check(counts["dp_locate_word32"] == run["batches"] * run["device_aligners"] > 0, (counts, run))
     # every planted pair is replaced: both trimmed mates keep at least the
     # 40 bases of the shortest insert, more than the window
     check(run["overwritten_pairs"] >= planted > 0, (run["overwritten_pairs"], planted))
-    cpu, runs = prefix_checks(make_argv, inputs, outs, work, "pe_overwrite")
-    card_prefix = runs["cuda"]["run"]["overwritten_pairs"]
-    cpu_prefix = runs["cpu"]["run"]["overwritten_pairs"]
-    check(card_prefix == cpu_prefix > 0, (card_prefix, cpu_prefix))
+    # the CPU's run of the prefix must overwrite the same pairs
+    prefix, card = prefix_checks(make_argv, inputs, outs, work, "pe_overwrite_path",
+                                 run_equal=("overwritten_pairs",))
+    card_prefix = card["run"]["overwritten_pairs"]
+    check(card_prefix > 0, card_prefix)
     for path in inputs:
         os.remove(path)
-    shutil.rmtree(folder, ignore_errors=True)
     return dict(
         argv="trim --aligner adapter -a TRUSEQ -A TRUSEQ2 -pe1 -pe2 -o -p -w 10,30,10",
         pairs=n_pairs, make_input_seconds=made, seconds=seconds,
         pairs_per_second=n_pairs / seconds, batches=run["batches"], launches=counts,
         planted_low_windows=planted, overwritten_pairs=run["overwritten_pairs"],
-        overwritten_pairs_in_prefix=cpu_prefix, split_seconds=split_seconds(run),
-        cpu_check=cpu,
+        overwritten_pairs_in_prefix=card_prefix, split_seconds=split_seconds(run),
+        prefix_check=prefix,
+    )
+
+
+# -- the engine paths: configurations the turbo runner declines ---------------
+
+
+class _HostCalls:
+    """Seconds and calls of the functions ``targets`` ((owner, attribute
+    name) each) in a run, by wrapping them while the run lasts: the split
+    of an engine path's wall, which runs on one thread."""
+
+    def __init__(self, targets):
+        self.targets = targets  # (owner, attribute name)
+        self.seconds = {name: 0.0 for _, name in targets}
+        self.calls = {name: 0 for _, name in targets}
+
+    def __enter__(self):
+        self._saved = []
+        for owner, name in self.targets:
+            real = getattr(owner, name)
+            self._saved.append((owner, name, real))
+            setattr(owner, name, self._timed(name, real))
+        return self
+
+    def _timed(self, name, real):
+        def timed(*args, **kwargs):
+            began = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                self.seconds[name] += time.perf_counter() - began
+                self.calls[name] += 1
+        return timed
+
+    def __exit__(self, *exc):
+        for owner, name, real in self._saved:
+            setattr(owner, name, real)
+
+
+def engine_split(calls, wall):
+    """The seconds and calls of each wrapped function, and its share of
+    the run's ``wall``."""
+    return {
+        name: {"calls": calls.calls[name], "seconds": calls.seconds[name],
+               "share_of_wall": calls.seconds[name] / wall}
+        for name in calls.seconds
+    }
+
+
+#: what the engine paths' split times: the DP of one adapter over one
+#: padded batch (encode, upload, kernel, fetch), and the batched matcher's
+#: rounds (the DP calls and the host's Match objects)
+ENGINE_SPLIT = ((engine, "_locate_padded"), (engine.BatchMatcher, "match_rounds"))
+
+
+def engine_batch(fastq, n_reads=1000, width=160):
+    """The first ``n_reads`` reads of ``fastq`` as the engine hands a
+    batch to the DP: upper-cased, ``width`` columns, padded with empty
+    reads to ``engine._bucket_batch(n_reads)`` rows."""
+    with open(fastq, "rb") as handle:
+        chunk = runtime.parse_chunk(b"".join(handle.readline() for _ in range(4 * n_reads)))
+    check(chunk.n == n_reads, (chunk.n, n_reads))
+    rows = engine._bucket_batch(n_reads)
+    reads = np.zeros((rows, width), np.uint8)
+    lengths = np.zeros(rows, np.int32)
+    reads[:n_reads] = chunk.padded_sequences(width)
+    lengths[:n_reads] = chunk.seq_len
+    reads = np.where((reads >= 97) & (reads <= 122), reads - 32, reads).astype(np.uint8)
+    return reads, lengths
+
+
+def engine_record(res, n_records, unit, batched=True):
+    """What an engine path prints of one run: wall time and rate, the kernel
+    launches, the changes of the engine's counters and the mode; checks
+    that the batched engine served the run (``mode`` "serial", one engine
+    built, no read matched per read on the host, and adapters matched
+    through its batched matcher unless ``batched`` is False: the insert
+    aligner has none)."""
+    check(res["mode"] == "serial", res["mode"])
+    check(res["build_counts"] == {"engine": 1, "fallback": 0}, res["build_counts"])
+    check(res["match_counts"]["scalar_reads"] == 0, res["match_counts"])
+    check((res["match_counts"]["batched"] > 0) == batched, res["match_counts"])
+    return {
+        "seconds": res["seconds"], unit: n_records,
+        unit + "_per_second": n_records / res["seconds"], "launches": res["counts"],
+        "mode": res["mode"], "build_counts": res["build_counts"],
+        "match_counts": res["match_counts"],
+    }
+
+
+def output_sequences(path, read_len):
+    """The sequences of a FASTQ output whose records all have ``read_len``
+    bases, [n, read_len] uint8."""
+    with open(path, "rb") as handle:
+        chunk = runtime.parse_chunk(handle.read())
+    check(bool(np.all(chunk.seq_len == read_len)), "a masked read changed its length")
+    return chunk.padded_sequences(read_len)
+
+
+def phase_se_engine(work, seed, n_reads):
+    """A multiplexed library trimmed in two rounds, masked so that lengths
+    stay fixed for the tools downstream, each name tagged with the adapter
+    found: ``-n 2 --mask-adapter -y _{name}``, which the turbo runner
+    declines. The per-record pipeline runs it, its batched engine matching
+    every adapter of every round on the card (``dp_locate_word32``)."""
+    rng = np.random.default_rng([seed, 15])
+    fastq = os.path.join(work, "engine.fastq")
+    began = time.perf_counter()
+    kinds, offsets, clean = write_side_fastq(fastq, rng, n_reads)
+    made = time.perf_counter() - began
+
+    def make_argv(inputs, folder):
+        out = os.path.join(folder, "masked.fastq")
+        report = os.path.join(folder, "report.txt")
+        argv = ["trim"]
+        for name, seq in SIDE_ADAPTERS:
+            argv += ["-a", "{}={}".format(name, seq)]
+        argv += ["-n", "2", "--mask-adapter", "-y", "_{name}", "-se", inputs[0], "-o", out,
+                 "--quiet", "--no-cache-adapters", "--report-file", report]
+        return argv, [out], report
+
+    folder = os.path.join(work, "se_engine_card")
+    os.makedirs(folder)
+    argv, outs, _ = make_argv([fastq], folder)
+    with _HostCalls(ENGINE_SPLIT) as calls:
+        res = run_trim_summary(argv, "cuda")
+    record = engine_record(res, n_reads, "reads")
+    record["split"] = engine_split(calls, res["seconds"])
+    counts = res["counts"]
+    check(counts["dp_locate_word32"] > 0 and counts["dp_locate_wide"] == 0, counts)
+    check(counts["diag_counts_u8"] == counts["diag_counts_i32"] == 0, counts)
+    # the kernel at the engine's shape: one batch of 1,000 reads padded to
+    # 1,024, TruSeq, 160 columns
+    reads, lengths = engine_batch(fastq)
+    truseq = CudaAligner(TRUSEQ, 0.1, BACK, min_overlap=3, device=DEVICE)
+    record["kernel_at_engine_shape"] = time_kernel(
+        dp_locate_word32, truseq, *device_inputs(truseq, reads, lengths))
+    seqs = output_sequences(outs[0], 150)
+    check(seqs.shape[0] == n_reads, "reads in != reads out")
+    # a clean TruSeq copy with at least 20 of its bases inside the read is
+    # masked from its planted offset on
+    sure = (kinds == 0) & clean & (offsets <= 150 - 20)
+    check(int(sure.sum()) > n_reads // 8, int(sure.sum()))
+    from_offset = np.arange(150)[None, :] >= offsets[sure][:, None]
+    unmasked = int(((seqs[sure] != ord("N")) & from_offset).any(axis=1).sum())
+    check(unmasked == 0, "{} reads with a clean TruSeq copy not masked from its offset".format(
+        unmasked))
+    prefix, _ = prefix_checks(make_argv, [fastq], outs, work, "se_engine_path")
+    os.remove(fastq)
+    return dict(
+        argv="trim -a truseq=... -a nextera=... -a umi=... -n 2 --mask-adapter -y _{name} "
+             "-se IN -o OUT",
+        read_length=150, make_input_seconds=made, masked_copies_checked=int(sure.sum()),
+        reads_masked=int((seqs == ord("N")).any(axis=1).sum()), prefix_check=prefix,
+        **record,
+    )
+
+
+def phase_pe_engine(work, seed, n_pairs):
+    """Methylation libraries made with the Swift Accel-NGS kit: ``--aligner
+    adapter --bisulfite swift`` (a pair modifier the turbo runner declines),
+    through the per-record pipeline with each mate's adapter matched on the
+    card by its batched engine."""
+    rng = np.random.default_rng([seed, 16])
+    inputs = [os.path.join(work, "engine_pairs.{}.fastq".format(i)) for i in (1, 2)]
+    began = time.perf_counter()
+    inserts, _ = write_pairs(*inputs, rng, n_pairs, 150, 220, 70)
+    made = time.perf_counter() - began
+
+    def make_argv(paths, folder):
+        outs = [os.path.join(folder, "swift.{}.fastq".format(i)) for i in (1, 2)]
+        report = os.path.join(folder, "report.txt")
+        argv = pe_argv("adapter", *paths, *outs, folder, report, named=True)
+        return argv + ["--bisulfite", "swift"], outs, report
+
+    folder = os.path.join(work, "pe_engine_card")
+    os.makedirs(folder)
+    argv, outs, _ = make_argv(inputs, folder)
+    with _HostCalls(ENGINE_SPLIT) as calls:
+        res = run_trim_summary(argv, "cuda")
+    record = engine_record(res, n_pairs, "pairs")
+    record["split"] = engine_split(calls, res["seconds"])
+    counts = res["counts"]
+    check(counts["dp_locate_word32"] > 0 and counts["dp_locate_wide"] == 0, counts)
+    check(counts["diag_counts_u8"] == counts["diag_counts_i32"] == 0, counts)
+    len1, len2 = output_lengths(outs[0]), output_lengths(outs[1])
+    check(len1.shape[0] == len2.shape[0] == n_pairs, "pairs in != pairs out")
+    # read-through pairs are cut to their insert, and Swift's cuts take 10
+    # more bases: from mate 1's 3' end and from mate 2's 5' end
+    through = (inserts >= 20) & (inserts <= 140)
+    share = float(((len1[through] == inserts[through] - 10)
+                   & (len2[through] == inserts[through] - 10)).mean())
+    check(share > 0.97, ("read-through pairs cut at their insert", share))
+    check(bool(np.all(len1 <= 140) and np.all(len2 <= 140)), "Swift's cuts missing")
+    prefix, _ = prefix_checks(make_argv, inputs, outs, work, "pe_engine_path")
+    for path in inputs:
+        os.remove(path)
+    return dict(
+        argv="trim --aligner adapter -a ad1=TRUSEQ -A ad2=TRUSEQ2 --bisulfite swift "
+             "-pe1 -pe2 -o -p",
+        read_length=150, insert_mean=220, insert_sd=70, make_input_seconds=made,
+        read_through_pairs=int(through.sum()), cut_at_insert_share=share,
+        prefix_check=prefix, **record,
+    )
+
+
+def phase_pe_engine_insert_check(work, seed):
+    """The paired ``mask_adapter`` golden's configuration at size, with the
+    insert aligner (``-n 3 --mask-adapter``: the diagonal counts of every
+    pair batch on the card, ``diag_counts_u8``; pairs without an insert
+    match fall back to each mate's scalar ``match_to``, as in the
+    reference), and ``--merge-overlapping --merged-output`` with the
+    adapter aligner (each pair aligned by the scalar ``Aligner``, as in the
+    reference). Both per-pair host steps are timed; every pair runs again
+    on the CPU, every output and the merged file compared whole."""
+    from atropos_tpu_torch.adapters.model import Adapter
+    from atropos_tpu_torch.align import Aligner
+    from atropos_tpu_torch.align.batched import BatchInsertMatcher
+
+    rng = np.random.default_rng([seed, 17])
+    inputs = [os.path.join(work, "check_pairs.{}.fastq".format(i)) for i in (1, 2)]
+    inserts, _ = write_pairs(*inputs, rng, INSERT_CHECK_PAIRS, 150, 220, 70,
+                             poly_a=(0, INSERT_CHECK_POLY_A))
+    folder = os.path.join(work, "pe_engine_check")
+    os.makedirs(folder)
+    specs, records = [], {}
+    for label, aligner, extra, host in (
+        ("insert", "insert", ["-n", "3", "--mask-adapter"],
+         ((Adapter, "match_to"), (BatchInsertMatcher, "candidates"))),
+        ("merge", "adapter", ["--merge-overlapping"], ((Aligner, "locate"),) + ENGINE_SPLIT),
+    ):
+        outs = [os.path.join(folder, "{}.{}.fastq".format(label, i)) for i in (1, 2)]
+        report = os.path.join(folder, "{}.report.txt".format(label))
+        argv = pe_argv(aligner, *inputs, *outs, folder, report, named=True) + extra
+        if label == "merge":
+            outs.append(os.path.join(folder, "merged.fastq"))
+            argv += ["--merged-output", outs[-1]]
+        with _HostCalls(host) as calls:
+            res = run_trim_summary(argv, "cuda")
+        record = engine_record(res, INSERT_CHECK_PAIRS, "pairs", batched=label == "merge")
+        counts = res["counts"]
+        if label == "insert":
+            # no adapter matched through the batched matcher: the DP kernel
+            # does not run; the insert counts do
+            check(counts["diag_counts_u8"] > 0 and counts["dp_locate_word32"] == 0, counts)
+            seqs = [output_sequences(out, 150) for out in outs]
+            through = (inserts >= 20) & (inserts < 150 - 10)
+            masked = np.ones(int(through.sum()), bool)
+            for mate in seqs:
+                tail = np.arange(150)[None, :] >= inserts[through][:, None]
+                masked &= ((mate[through] == ord("N")) | ~tail).all(axis=1)
+            record["read_through_pairs"] = int(through.sum())
+            record["masked_from_insert_share"] = float(masked.mean())
+            check(record["masked_from_insert_share"] > 0.9, record["masked_from_insert_share"])
+        else:
+            check(counts["dp_locate_word32"] > 0 and counts["diag_counts_u8"] == 0, counts)
+            record["merged_pairs"] = count_records(outs[-1])
+            check(record["merged_pairs"] > INSERT_CHECK_PAIRS // 8, record["merged_pairs"])
+        # the per-pair scalar step first: match_to, or the merge's locate
+        record["split"] = engine_split(calls, res["seconds"])
+        records[label] = record
+        cpu_outs = [out + ".cpu" for out in outs]
+        cpu_argv = [cpu_outs[outs.index(a)] if a in outs else a for a in argv]
+        specs.append(dict(
+            argv=cpu_argv, outs=[(c, o, None) for c, o in zip(cpu_outs, outs)],
+            mode="serial", whole=True,
+            summary={key: _plain_json(res["summary"].get(key)) for key in SUMMARY_KEYS},
+            report_sections=_report_sections(report),
+        ))
+    defer_cpu("pe_engine_insert_check", specs)
+    return dict(
+        argv=["trim --aligner insert -a ad1=TRUSEQ -A ad2=TRUSEQ2 -n 3 --mask-adapter",
+              "trim --aligner adapter -a ad1=TRUSEQ -A ad2=TRUSEQ2 --merge-overlapping "
+              "--merged-output MERGED"],
+        pairs=INSERT_CHECK_PAIRS, near_poly_a_pairs=INSERT_CHECK_POLY_A, runs=records,
     )
 
 
@@ -1767,7 +2324,21 @@ GOLDENS = [
      "twoadapters.fasta",
      [("golden_twoadapters.{}.fasta".format(name), "twoadapters.{}.fasta".format(name))
       for name in ("first", "second", "unknown")]),
+    # the cases the turbo runner declines: the per-record pipeline and its
+    # batched engine
+    ("-n 3 -e 0.1 --length-tag length= "
+     "-b TGAGACACGCAACAGGGGAAAGGCAAGGCACACAGGGGATAGG "
+     "-b TCCATCTCATCCCTGCGTGTCCCATCTGTTCCCTCCCTGTCTCA", "454.fa", "454.fa", []),
+    ("-b CAAG -n 3 --mask-adapter", "anywhere_repeat.fastq", "anywhere_repeat.fastq", []),
+    ("--strip-suffix _sequence -a XXXXXXX", "stripped.fasta", "simple.fasta", []),
+    ("--info-file {work}/info5.txt --times 2 -a adapt=GCCGAACTTCTTA "
+     "-a adapt2=GACTGCCTTAAGGACGT", "illumina5.fastq", "illumina5.fastq",
+     [("info5.txt", "illumina5.info.txt")]),
+    ("--no-trim --discard-untrimmed -a CCCTAGTTAAAC", "no-trim.fastq", "small.fastq", []),
+    ("-a AAAAAAAAAA...TTTTTTTTTT", "linked.fasta", "linked.fasta", []),
 ]
+#: the last of GOLDENS that the turbo runner declines
+SERIAL_GOLDENS = 6
 
 
 def phase_goldens(work):
@@ -1778,18 +2349,19 @@ def phase_goldens(work):
 
     sys.path.insert(0, ROOT)
     from tests.test_torch_goldens_pe import PORTED, SIDE_OUTPUTS, _argv
+    from tests.test_torch_goldens_pe import SERIAL as PE_SERIAL
 
     conformance = os.path.join(ROOT, "tests", "conformance")
     launches = 0
-    runs = []  # (argv, [(written, golden)])
-    for params, expected, inpath, side in GOLDENS:
+    runs = []  # (argv, [(written, golden)], mode)
+    for i, (params, expected, inpath, side) in enumerate(GOLDENS):
         out = os.path.join(work, "golden_" + expected)
         compared = [(os.path.join(work, written), golden) for written, golden in side]
         if "{name}" not in expected:
             compared.append((out, expected))
         runs.append((["trim"] + params.replace("{work}", work).split() + [
             "-se", os.path.join(conformance, "data", inpath), "-o", out,
-        ], compared))
+        ], compared, "serial" if i >= len(GOLDENS) - SERIAL_GOLDENS else "turbo"))
     for i, (name, aligner, params, in1, in2, exp1, exp2) in enumerate(PORTED):
         case_dir = pathlib.Path(work) / "pe{}".format(i)
         case_dir.mkdir()
@@ -1799,18 +2371,21 @@ def phase_goldens(work):
         ]
         runs.append((["trim"] + argv, [
             (path, golden.format(aligner=aligner)) for path, golden in pairs
-        ]))
+        ], "serial" if name in PE_SERIAL else "turbo"))
     for aligner in ("adapter", "insert"):
         out = os.path.join(work, "interleaved_{}.fastq".format(aligner))
         runs.append((["trim"] + "-q 20 -a TTAGACATAT -A CAGTGGAGTA -m 14 -M 90".split() + [
             "--aligner", aligner, "-l", os.path.join(conformance, "data", "interleaved.fastq"),
             "-L", out,
-        ], [(out, "interleaved.fastq")]))
-    for argv, outputs in runs:
+        ], [(out, "interleaved.fastq")], "turbo"))
+    modes = {}
+    for argv, outputs, mode in runs:
         argv = argv + ["--quiet", "--no-cache-adapters",
                        "--report-file", os.path.join(work, "report3.txt")]
-        _, counts, _ = run_trim(argv, "cuda")
-        launches += sum(counts.values())
+        res = run_trim_summary(argv, "cuda")
+        check(res["mode"] == mode, (res["mode"], argv))
+        modes[mode] = modes.get(mode, 0) + 1
+        launches += sum(res["counts"].values())
         for path, golden in outputs:
             with open(path, "rb") as got, open(
                 os.path.join(conformance, "expected", golden), "rb"
@@ -1820,7 +2395,7 @@ def phase_goldens(work):
     check(launches >= len(runs), 'launches >= len(runs)')
     emit({"goldens": {"single_end_cases": len(GOLDENS),
                       "paired_end_cases": len(runs) - len(GOLDENS),
-                      "identical": len(runs), "launches": launches}})
+                      "identical": len(runs), "launches": launches, "modes": modes}})
 
 
 # -- main --------------------------------------------------------------------------
@@ -1839,15 +2414,20 @@ def main():
                              "first run is the one checked and reported)")
     args = parser.parse_args()
     began = time.perf_counter()
+    marks = [("start", began)]
+
+    def mark(name):
+        """The end of a stretch of phases, for the seconds line."""
+        marks.append((name, time.perf_counter()))
 
     card = timing.smi("name,power.limit")
     emit({"device": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "sm_clock_max": timing.smi("clocks.max.sm")})
     phase_build()
-    max_err, global_column = phase_grid(args.seed)
-    max_err.update(phase_diag_grid(args.seed))
+    mark("build")
 
     work = tempfile.mkdtemp(prefix="atropos_chip_smoke_")
+    cpu = None
     try:
         word32_launches, fastq = phase_main_path(
             work, args.seed, args.reads, args.main_path_runs
@@ -1900,10 +2480,41 @@ def main():
         for path in wide_inputs:
             os.remove(path)
         emit({"se_side_path": phase_se_side(work, args.seed, SIDE_READS)})
+        mark("turbo paths")
         probe_err, probe_launches, probe_times = phase_dtype_probe(args.seed)
+        global_column = phase_global_column(args.seed)
+        mark("dtype probe and global column")
+
+        # the configurations the turbo runner declines: the per-record
+        # pipeline, its batched engine on the card
+        se_engine = phase_se_engine(work, args.seed, ENGINE_READS)
+        emit({"se_engine_path": se_engine})
+        pe_engine = phase_pe_engine(work, args.seed, ENGINE_PAIRS)
+        emit({"pe_engine_path": pe_engine})
+        insert_check = phase_pe_engine_insert_check(work, args.seed)
+        emit({"pe_engine_insert_check": insert_check})
+        mark("engine paths")
+        engine_launches = {
+            "dp_locate_word32": sum(
+                record["launches"]["dp_locate_word32"]
+                for record in (se_engine, pe_engine, insert_check["runs"]["merge"])),
+            "diag_counts_u8": insert_check["runs"]["insert"]["launches"]["diag_counts_u8"],
+        }
+
+        # after the last timed card phase: every --device cpu check, in
+        # child processes, while the untimed card checks run here
+        cpu = start_cpu_phase()
+        max_err = phase_grid(args.seed)
+        max_err.update(phase_diag_grid(args.seed))
         max_err.update(probe_err)
         phase_goldens(work)
+        mark("grids and goldens beside the cpu phase")
+        finish_cpu_phase(cpu)
+        cpu = None
+        mark("rest of the cpu phase")
     finally:
+        if cpu is not None:
+            stop_cpu_phase(cpu)
         shutil.rmtree(work, ignore_errors=True)
 
     emit({"dp_global_column": global_column})
@@ -1928,10 +2539,16 @@ def main():
             "launches": launches,
             "max_abs_err": max_err[kernel.name],
         }
+        if kernel.name in engine_launches:
+            # launches on the engine paths (se_engine_path, pe_engine_path,
+            # the insert check's -R run; its insert run for the counts)
+            check(engine_launches[kernel.name] > 0, (kernel.name, engine_launches))
+            entry["engine_launches"] = engine_launches[kernel.name]
         entry.update(measured)
         kernels.append(entry)
     print(card, flush=True)
-    emit({"seconds": time.perf_counter() - began})
+    emit({"seconds": time.perf_counter() - began, "phase_seconds": {
+        name: stamp - marks[i][1] for i, (name, stamp) in enumerate(marks[1:])}})
     emit({"kernels": kernels})
     emit({
         "ok": True,

@@ -568,3 +568,106 @@ def test_overwrite_on_the_card_equals_the_golden(card, tmp_path):
             os.path.join(conformance, "expected", golden), "rb"
         ) as want:
             assert got.read() == want.read()
+
+
+def _engine_reads(path, seed, n_reads=300):
+    """Reads of 40-150 bases, some with TruSeq at a random offset, some
+    starting with ``ACGTACGTAA`` followed by ``TTAGACATAT`` after a gap
+    (the linked adapter's front and back parts)."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    with open(path, "w") as out:
+        for i in range(n_reads):
+            seq = bases[rng.integers(0, 4, int(rng.integers(40, 151)))].tobytes().decode()
+            if i % 3 == 0:
+                at = int(rng.integers(0, len(seq)))
+                seq = (seq[:at] + TRUSEQ + seq)[: len(seq)]
+            elif i % 3 == 1:
+                seq = ("ACGTACGTAA" + seq[:int(rng.integers(0, 20))] + "TTAGACATAT" + seq)[: len(seq)]
+            out.write("@r{}\n{}\n+\n{}\n".format(i, seq, "I" * len(seq)))
+    return path
+
+
+def _serial_on_both_devices(argv, outs):
+    """``argv`` through the port on the card and on the CPU: both in the
+    serial mode, the same bytes; the launch counts of each run."""
+    from atropos_tpu_torch.align import cuda_kernel, insert_kernel
+    from atropos_tpu_torch.commands import get_command
+
+    got, counts = {}, {}
+    for device in ("cuda", "cpu"):
+        cuda_kernel.reset_launch_counts()
+        insert_kernel.reset_launch_counts()
+        dev_outs = [out + "." + device for out in outs]
+        dev_argv = [dev_outs[outs.index(a)] if a in outs else a for a in argv]
+        rc, summary = get_command("trim").execute(dev_argv, device=device)
+        assert rc == 0 and summary["mode"] == "serial"
+        counts[device] = dict(cuda_kernel.launch_counts(), **insert_kernel.launch_counts())
+        got[device] = []
+        for path in dev_outs:
+            with open(path, "rb") as handle:
+                got[device].append(handle.read())
+    assert got["cuda"] == got["cpu"] and all(got["cuda"])
+    assert sum(counts["cpu"].values()) == 0
+    return counts["cuda"]
+
+
+@pytest.mark.parametrize("adapters", [
+    ["-a", "tru=" + TRUSEQ, "-a", "anyw=TTAGACATAT", "-n", "2"],
+    ["-a", "link=ACGTACGTAA...TTAGACATAT", "-n", "2"],
+])
+def test_engine_single_end_on_the_card_equals_the_cpu(card, tmp_path, adapters):
+    """The per-record pipeline's batched engine: ``-n 2`` rounds and a
+    linked adapter on the card, the same bytes as on the CPU."""
+    inp = _engine_reads(str(tmp_path / "in.fastq"), 16)
+    out = str(tmp_path / "out.fastq")
+    counts = _serial_on_both_devices(
+        adapters + ["-se", inp, "-o", out, "--quiet", "--no-cache-adapters",
+                    "--report-file", str(tmp_path / "report.txt")], [out])
+    assert counts["dp_locate_word32"] > 0
+
+
+@pytest.mark.parametrize("aligner,kernel", [("adapter", "dp_locate_word32"),
+                                            ("insert", "diag_counts_u8")])
+def test_engine_paired_end_on_the_card_equals_the_cpu(card, tmp_path, aligner, kernel):
+    """The paired ``mask_adapter`` golden's configuration with either
+    aligner on the ``big`` pairs: the adapter aligner's DP or the insert
+    aligner's counts on the card, the same bytes as on the CPU."""
+    data = os.path.join(os.path.dirname(__file__), "conformance", "data")
+    outs = [str(tmp_path / "out.{}.fastq".format(i)) for i in (1, 2)]
+    counts = _serial_on_both_devices(
+        ["--aligner", aligner, "-a", "ad1=" + TRUSEQ,
+         "-A", "ad2=AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT", "-n", "3", "--mask-adapter",
+         "-pe1", os.path.join(data, "big.1.fq"), "-pe2", os.path.join(data, "big.2.fq"),
+         "-o", outs[0], "-p", outs[1], "--quiet", "--no-cache-adapters",
+         "--report-file", str(tmp_path / "report.txt")], outs)
+    assert counts[kernel] > 0
+
+
+def test_engine_batch_of_64_on_the_card(card, tmp_path):
+    """A batch of 64 reads, the engine's smallest, through the batched
+    matcher on the card: the matches of the CPU's, one launch a round."""
+    from atropos_tpu_torch import engine
+    from atropos_tpu_torch.adapters import AdapterParser
+    from atropos_tpu_torch.align import cuda_kernel
+    from atropos_tpu_torch.commands.trim.modifiers import AdapterCutter
+    from atropos_tpu_torch.io.seqio import FastqReader
+
+    path = _engine_reads(str(tmp_path / "in.fastq"), 64, n_reads=64)
+    found = {}
+    for device in ("cuda", "cpu"):
+        adapter = AdapterParser().parse_from_spec("tru=" + TRUSEQ)
+        matcher = engine.BatchMatcher(AdapterCutter([adapter], times=2), device)
+        with FastqReader(path) as reader:
+            reads = list(reader)
+        cuda_kernel.reset_launch_counts()
+        rounds = matcher.match_rounds(reads, 2)
+        launched = cuda_kernel.launch_counts()["dp_locate_word32"]
+        assert (launched == 2) == (device == "cuda")
+        found[device] = [
+            ([(m.astart, m.astop, m.rstart, m.rstop, m.matches, m.errors) for m in matches],
+             final.sequence)
+            for matches, final in rounds
+        ]
+    assert found["cuda"] == found["cpu"]
+    assert sum(bool(matches) for matches, _ in found["cuda"]) > 10

@@ -2,9 +2,10 @@
 copies of the package with a constant set otherwise, which
 ``diag_compare.py`` and ``probe_compare.py`` time, the session in which
 the compare tools take turns, the flags of ``chip_smoke.py``'s DP grid,
-and the count of the
-dtype probe's column loops in a SASS listing (``sass_rows.py --probe``).
-The tools' timings run only on a card."""
+its ``--device cpu`` checks (one a card path, on the records each had
+before they moved into one phase, run only by that phase's children), and
+the count of the dtype probe's column loops in a SASS listing
+(``sass_rows.py --probe``). The tools' timings run only on a card."""
 import os
 
 import pytest
@@ -142,3 +143,108 @@ def test_probe_compare_names_its_runs():
     assert probe_compare.run_name("dtype_probe_i16x2", 160, 32768, True) == (
         "dtype_probe_i16x2/L=160,N=32768/dyn")
     assert probe_compare.run_name("dtype_probe_i32", 104, 16384, False).endswith("/nodyn")
+
+
+#: the paths whose output ``chip_smoke.py`` makes on the card, and the
+#: records of their input each ``--device cpu`` check ran before the checks
+#: moved into one phase (65,536 reads of the main path; (DEPTH + 2) x
+#: MAX_BATCH = 163,840 pairs or records of the paired and side paths) or
+#: that the engine paths run (65,536 records; the whole 2,048 pairs of the
+#: insert check)
+CPU_CHECKS = {
+    "main_path": 65536, "pe_insert_path": 163840, "pe_adapter_path": 163840,
+    "pe_side_path": 163840, "pe_overwrite_path": 163840, "pe_insert_wide_path": 163840,
+    "se_side_path": 163840, "se_engine_path": 65536, "pe_engine_path": 65536,
+    "pe_engine_insert_check": 2048,
+}
+
+
+def _deferred_tags():
+    """The path tags ``chip_smoke.py``'s phases hand to the CPU phase: the
+    string arguments of every ``defer_cpu``, ``defer_pair_check`` and
+    ``prefix_checks`` call, and the tags chosen beside such a call."""
+    import ast
+
+    tree = ast.parse(_read(ROOT, "chip_smoke.py"))
+    tags = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name.startswith("phase_"):
+            for sub in ast.walk(node):
+                if isinstance(sub, ast.Call) and getattr(sub.func, "id", None) in (
+                    "defer_cpu", "defer_pair_check", "prefix_checks"
+                ):
+                    tags += [a.value for a in sub.args
+                             if isinstance(a, ast.Constant) and isinstance(a.value, str)]
+                elif isinstance(sub, ast.Assign) and any(
+                    getattr(t, "id", None) == "tag" for t in sub.targets
+                ):
+                    tags += [c.value for c in ast.walk(sub.value)
+                             if isinstance(c, ast.Constant) and isinstance(c.value, str)]
+    return tags
+
+
+def test_every_card_path_has_one_cpu_check_of_its_records():
+    import chip_smoke
+
+    assert chip_smoke.CPU_CHECK_RECORDS == CPU_CHECKS
+    tags = _deferred_tags()
+    assert sorted(tags) == sorted(CPU_CHECKS), tags
+
+
+def test_cpu_checks_run_only_in_the_cpu_phase(tmp_path, monkeypatch):
+    """A card phase cannot run a ``--device cpu`` check (it would share the
+    host with the phase's timing), deferring one runs nothing, a path
+    cannot defer two, and the CPU phase runs what was deferred in a spawned
+    child and compares its output with the card's."""
+    import chip_smoke
+
+    from .conformance_utils import cutpath, datapath
+
+    out = str(tmp_path / "cpu.fastq")
+    argv = ["trim", "-b", "TTAGACATATCTCCGTCG", "-se", datapath("small.fastq"), "-o", out,
+            "--quiet", "--no-cache-adapters", "--report-file", str(tmp_path / "report.txt")]
+    for run in (chip_smoke.run_trim, chip_smoke.run_trim_summary):
+        with pytest.raises(AssertionError):
+            run(argv, "cpu")
+    assert not os.path.exists(out)
+    monkeypatch.setattr(chip_smoke, "CPU_CHECK_RECORDS", {"small": 10})
+    monkeypatch.setattr(chip_smoke, "CPU_PENDING", [])
+    chip_smoke.defer_cpu("small", [dict(
+        argv=argv, outs=[(out, cutpath("small.fastq"), None)], expect={"device": "cpu"},
+    )])
+    with pytest.raises(AssertionError):
+        chip_smoke.defer_cpu("small", [dict(argv=list(argv), outs=[])])
+    assert not os.path.exists(out) and len(chip_smoke.CPU_PENDING) == 1
+    assert chip_smoke.finish_cpu_phase(chip_smoke.start_cpu_phase()) > 0
+    assert chip_smoke.CPU_PENDING == [] and not os.path.exists(out)
+    assert os.path.exists(str(tmp_path / "cpu_small_0.report.txt"))
+
+
+def test_the_cpu_phase_follows_every_timed_phase():
+    """``main`` starts the CPU phase after every phase that times the card
+    and before only the phases that time nothing, which run beside it."""
+    import ast
+
+    import chip_smoke
+
+    tree = ast.parse(_read(ROOT, "chip_smoke.py"))
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    calls = [
+        node.func.id for node in sorted(
+            (n for n in ast.walk(main) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name)),
+            key=lambda n: (n.lineno, n.col_offset))
+    ]
+    start, finish = calls.index("start_cpu_phase"), calls.index("finish_cpu_phase")
+    beside = [name for name in calls[start + 1 : finish] if name.startswith("phase_")]
+    assert sorted(set(beside)) == sorted(chip_smoke.UNTIMED_PHASES)
+    timed = [name for name in calls if name.startswith(("phase_", "time_"))
+             and name not in chip_smoke.UNTIMED_PHASES]
+    assert timed and all(calls.index(name) < start for name in timed)
+    timing = {"time_kernel", "time_diag", "time_pair_step", "time_device_step",
+              "device_times", "perf_counter"}
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and node.name in chip_smoke.UNTIMED_PHASES:
+            called = {getattr(n.func, "id", getattr(n.func, "attr", None))
+                      for n in ast.walk(node) if isinstance(n, ast.Call)}
+            assert not called & (timing - {"perf_counter"}), (node.name, called & timing)

@@ -5,10 +5,11 @@ command line. The cases the JAX package runs through its turbo runner and
 that lie in the ported slice go through ``atropos_tpu_torch`` on ``cpu``
 and must reproduce ``tests/conformance/expected/`` byte for byte, with
 their side files (rest, info and wildcard files, the demultiplexed
-outputs) as the upstream tests check them; the others (colorspace, and
-what the turbo runner hands to the batched engine or the scalar pipeline)
-must raise ``NotPortedError`` naming their ROADMAP.md queue item, before
-any output is written.
+outputs) as the upstream tests check them. The cases the turbo runner
+declines run through the port's per-record pipeline and its batched
+engine (``SERIAL``) and must do the same; the colorspace cases must raise
+``NotPortedError`` naming their ROADMAP.md queue item, before any output
+is written.
 """
 import os
 
@@ -111,14 +112,13 @@ NOT_PORTED = {
     "too_short_no_primer": "engine",
     "maximum_length": "engine",
     "too_long": "engine",
-    "length_tag": "engine",
-    "mask_adapter": "engine",
     "suffix": "engine",
-    "strip_suffix": "engine",
-    "info_file_times": "engine",
-    "no_trim": "engine",
-    "linked": "engine",
 }
+
+#: ported cases that the turbo runner declines: they run through the
+#: per-record pipeline and its batched engine (``mode`` "serial")
+SERIAL = ("length_tag", "mask_adapter", "strip_suffix", "info_file_times",
+          "no_trim", "linked")
 
 #: further output files of the ported cases: (file written, golden file);
 #: a golden of ``tests/conformance/data`` is named with its directory
@@ -127,6 +127,7 @@ SIDE_OUTPUTS = {
     "rest": (("rest.tmp", "../data/rest.txt"),),
     "restfront": (("rest.tmp", "../data/restfront.txt"),),
     "info_file": (("info.txt", "illumina.info.txt"),),
+    "info_file_times": (("info.txt", "illumina5.info.txt"),),
     "demultiplex": tuple(
         ("twoadapters.{}.fasta".format(name), "twoadapters.{}.fasta".format(name))
         for name in ("first", "second", "unknown")
@@ -157,7 +158,8 @@ def test_case_table_is_complete():
     assert len(CASES) == len({case[0] for case in CASES}) == 79
     assert set(NOT_PORTED) <= {case[0] for case in CASES}
     assert set(NOT_PORTED.values()) <= set(ROADMAP_ITEMS)
-    assert len(PORTED) == 67
+    assert set(SERIAL) <= {case[0] for case in PORTED}
+    assert len(PORTED) == 73
 
 
 @pytest.mark.parametrize(
@@ -168,7 +170,8 @@ def test_golden(name, params, expected, inpath, tmp_path):
     retcode, summary = get_command("trim").execute(argv, device="cpu")
     assert "exception" not in summary, summary.get("exception")
     assert retcode == 0
-    assert summary["mode"] == "turbo" and summary["device"] == "cpu"
+    mode = "serial" if name in SERIAL else "turbo"
+    assert summary["mode"] == mode and summary["device"] == "cpu"
     if name not in SIDE_OUTPUTS or "{name}" not in expected:
         assert_files_equal(cutpath(expected), out)
     for written, golden in SIDE_OUTPUTS.get(name, ()):

@@ -1,13 +1,13 @@
 """The upstream paired-end goldens through the port.
 
 Every case of ``tests/test_trim_pe.py`` is listed here with its command
-line and the aligners the reference runs it with. The cases the JAX
-package runs through its turbo paired runner go through
-``atropos_tpu_torch`` on ``cpu`` and must reproduce
-``tests/conformance/expected/`` byte for byte; the others (what the
-turbo runner hands to the scalar pipeline, ``--threads``) must raise
-``NotPortedError`` naming their ROADMAP.md queue item, before any output
-is written.
+line and the aligners the reference runs it with. The ported cases go
+through ``atropos_tpu_torch`` on ``cpu`` and must reproduce
+``tests/conformance/expected/`` byte for byte: through the turbo paired
+runner, or, where the turbo runner declines (``SERIAL``), through the
+per-record pipeline and its batched engine. The others (``--threads``)
+must raise ``NotPortedError`` naming their ROADMAP.md queue item, before
+any output is written.
 
 The case table imports nothing but the port, so that ``chip_smoke.py``
 runs the same ported cases on the card.
@@ -113,11 +113,14 @@ CASES = [
 
 #: cases outside the slice -> the topic of the ROADMAP.md item they wait for
 NOT_PORTED = {
-    "mask_adapter": "engine",
     "no_writer_process": "multi-gpu",
     "summary_threads": "multi-gpu",
     "issue122_empty_gz_outputs": "multi-gpu",
 }
+
+#: ported cases that the turbo runner declines: they run through the
+#: per-record pipeline and its batched engine (``mode`` "serial")
+SERIAL = ("mask_adapter",)
 
 #: second outputs of the ported cases: file written -> golden file
 SIDE_OUTPUTS = {
@@ -168,7 +171,8 @@ def test_case_table_is_complete():
     assert len({case[0] for case in CASES}) == len(CASES) == 23
     assert set(NOT_PORTED) <= {case[0] for case in CASES}
     assert set(NOT_PORTED.values()) <= set(ROADMAP_ITEMS)
-    assert len(PORTED) == 27
+    assert set(SERIAL) <= {case[0] for case in PORTED}
+    assert len(PORTED) == 29
 
 
 @pytest.mark.parametrize(
@@ -179,7 +183,8 @@ def test_golden(name, aligner, params, in1, in2, exp1, exp2, tmp_path):
     retcode, summary = get_command("trim").execute(argv, device="cpu")
     assert "exception" not in summary, summary.get("exception")
     assert retcode == 0
-    assert summary["mode"] == "turbo" and summary["device"] == "cpu"
+    mode = "serial" if name in SERIAL else "turbo"
+    assert summary["mode"] == mode and summary["device"] == "cpu"
     assert_files_equal(cutpath(exp1.format(aligner=aligner)), out1)
     assert_files_equal(cutpath(exp2.format(aligner=aligner)), out2)
     for written, golden in SIDE_OUTPUTS.get(name, ()):

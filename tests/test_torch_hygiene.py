@@ -352,38 +352,92 @@ def test_other_commands_are_not_ported(command):
     assert "ROADMAP.md queue 1 item 6" in str(err.value)
 
 
-@pytest.mark.parametrize("extra,topic", [
-    (["-pe1", "paired.1.fastq", "-pe2", "paired.2.fastq", "-A", "ACGT",
-      "--aligner", "insert", "--correct-mismatches", "liberal"], "insert-correct"),
-    (["-l", "interleaved.fastq", "-A", "ACGT", "-L", "{tmp}/il.fastq",
-      "--aligner", "insert", "--merge-overlapping"], "engine"),
-    (["-pe1", "paired.1.fastq", "-pe2", "paired.2.fastq", "-A", "ACGT",
-      "--bisulfite", "swift"], "engine"),
-    (["-pe1", "paired.1.fastq", "-pe2", "paired.2.fastq", "-A", "ACGT",
-      "--aligner", "insert", "-w", "10,30,10"], "engine"),
-    (["-se", "small.fastq", "--threads", "2"], "multi-gpu"),
-    (["-se", "small.fastq", "--stats", "both:tiles"], "engine"),
-    (["-se", "small.fastq", "--times", "2"], "engine"),
-    (["-se", "small.fastq", "--op-order", "ACGQW"], "engine"),
-])
-def test_options_outside_the_slice_raise(tmp_path, extra, topic):
-    from atropos_tpu_torch import NotPortedError
-    from atropos_tpu_torch.__main__ import main
+#: configurations of the single-end and paired-end slices that the turbo
+#: runner declines: they run through the per-record pipeline
+ENGINE_ARGVS = [
+    ["-l", "interleaved.fastq", "-A", "ad2=ACGT", "-L", "{tmp}/il.fastq",
+     "--aligner", "insert", "--merge-overlapping"],
+    ["-pe1", "paired.1.fastq", "-pe2", "paired.2.fastq", "-A", "ad2=ACGT",
+     "--bisulfite", "swift"],
+    ["-pe1", "paired.1.fastq", "-pe2", "paired.2.fastq", "-A", "ad2=ACGT",
+     "--aligner", "insert", "-w", "10,30,10"],
+    ["-se", "small.fastq", "--times", "2"],
+    ["-se", "small.fastq", "--op-order", "ACGQW"],
+]
 
+SAM_LINES = "r1\t4\t*\t0\t0\t*\t*\t0\t0\tACGTACGTAC\tIIIIIIIIII\n"
+
+
+def _slice_argv(extra, tmp_path):
+    """The shared trim command line of the slice tests, with ``extra``'s
+    data files and ``{tmp}`` resolved; returns (argv, main output)."""
     extra = [
         x.replace("{tmp}", str(tmp_path)) if "{tmp}" in x
-        else datapath(x) if x.endswith(".fastq") else x
+        else datapath(x) if x.endswith((".fastq", ".fasta", ".qual")) else x
         for x in extra
     ]
     out = str(tmp_path / "out.fastq")
-    argv = ["trim", "-a", "TTAGACATATCTCCGTCG", "-q", "10", "--quiet",
+    argv = ["trim", "-a", "ad=TTAGACATATCTCCGTCG", "-q", "10", "--quiet",
             "--report-file", str(tmp_path / "report.txt"),
             "--adapter-cache-file", str(tmp_path / ".adapters")]
     if "-l" not in extra:
         argv += ["-o", out]
     if "-pe1" in extra:
         argv += ["-p", str(tmp_path / "out2.fastq")]
+    return argv + extra, out
+
+
+@pytest.mark.parametrize("extra", ENGINE_ARGVS, ids=lambda e: " ".join(e[-2:]))
+def test_options_the_turbo_runner_declines_run_serial(tmp_path, extra):
+    """Both packages run the configuration through the per-record
+    pipeline (``mode`` "serial") with the same bytes and summary."""
+    from atropos_tpu import commands as jax_commands
+    from atropos_tpu_torch import commands as port_commands
+
+    from .test_torch_turbo_se import _comparable
+
+    argv, _ = _slice_argv(extra, tmp_path)
+    outs = [p for p in argv if p.startswith(str(tmp_path)) and p.endswith(".fastq")]
+    results = []
+    for which in ("jax", "port"):
+        for path in outs:
+            if os.path.exists(path):
+                os.remove(path)
+        if which == "jax":
+            retcode, summary = jax_commands.get_command("trim").execute(argv[1:])
+        else:
+            retcode, summary = port_commands.get_command("trim").execute(
+                argv[1:], device="cpu"
+            )
+        assert retcode == 0 and summary["mode"] == "serial"
+        files = {}
+        for path in outs:
+            with open(path, "rb") as handle:
+                files[path] = handle.read()
+        results.append((files, _comparable(summary)))
+    assert results[0] == results[1]
+
+
+@pytest.mark.parametrize("extra,topic", [
+    (["-pe1", "paired.1.fastq", "-pe2", "paired.2.fastq", "-A", "ACGT",
+      "--aligner", "insert", "--correct-mismatches", "liberal"], "insert-correct"),
+    (["-se", "small.fastq", "--threads", "2"], "multi-gpu"),
+    (["-se", "small.fastq", "--stats", "both:tiles"], "engine"),
+    (["-se", "small.fastq", "--stats", "both", "--times", "2"], "engine"),
+    (["-se", "small.fastq", "-c"], "engine"),
+    (["-se", "{tmp}/in.sam"], "engine"),
+    (["-se", "E3M.fasta", "-sq", "E3M.qual"], "engine"),
+])
+def test_options_outside_the_slice_raise(tmp_path, extra, topic):
+    from atropos_tpu_torch import ROADMAP_ITEMS, NotPortedError
+    from atropos_tpu_torch.__main__ import main
+
+    with open(str(tmp_path / "in.sam"), "w") as handle:
+        handle.write(SAM_LINES)
+    argv, out = _slice_argv(extra, tmp_path)
     with pytest.raises(NotPortedError) as err:
-        main(argv + extra, device="cpu")
+        main(argv, device="cpu")
     assert err.value.topic == topic
+    assert ROADMAP_ITEMS[topic] in str(err.value)
     assert not os.path.exists(out)
+    assert not os.path.exists(str(tmp_path / "report.txt"))
