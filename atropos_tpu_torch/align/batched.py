@@ -628,42 +628,32 @@ class BatchInsertMatcher:
     length — exactly how ``InsertAligner.match_insert`` calls it).
 
     The device computes the per-diagonal match counts (the diagonal-count
-    kernels, :meth:`match_counts_device`); :meth:`candidate_arrays`
-    reconstructs the scalar kernel's candidate stream from them on the
-    host, in numpy, exactly as
+    kernels); :meth:`candidate_arrays` reconstructs the scalar kernel's
+    candidate stream from them on the host, in numpy, exactly as
     ``atropos_tpu/align/batched.py::BatchInsertMatcher`` does (see there
     for the banding derivation), and :meth:`reconstruct` turns it into the
-    per-pair candidate lists of the scalar format. ``device`` is where the
-    counts of :meth:`candidates` are computed.
+    per-pair candidate lists of the scalar format.
     """
 
-    def __init__(self, max_error_rate, min_overlap=1, max_matches=100,
-                 device="cpu"):
+    def __init__(self, max_error_rate, min_overlap=1, max_matches=100):
         self.max_error_rate = float(max_error_rate)
         self.min_overlap = min_overlap
         self.max_matches = max_matches
-        self.device = torch.device(device)
 
-    @staticmethod
-    def match_counts_device(refs_T, queries_T, lengths, n_symbols):
-        """[W, B] uint8 byte planes and [B] int32 lengths on one device in,
-        [W, B] match counts out, without a host synchronization: the
-        diagonal-count kernel that ``W`` and the planes' combined alphabet
-        of ``n_symbols`` symbols select
-        (:func:`~atropos_tpu_torch.align.insert_kernel.kernel_for`) on CUDA
-        tensors, its plain version on CPU tensors."""
-        from atropos_tpu_torch.align import insert_kernel
-
-        kernel = insert_kernel.kernel_for(refs_T.shape[0], n_symbols)
-        return kernel(refs_T, queries_T, lengths)
-
-    def candidates(self, refs_u8, reads_u8, lengths):
+    def candidates(self, refs_u8, reads_u8, lengths, device):
         """Per-pair candidate lists in the scalar ``MultiAligner.locate``
         format. refs_u8/reads_u8: [B, W] uint8 (ref = rc(read2[:m_b]),
         query = read1[:m_b], zero-padded); lengths: [B] per-pair m_b.
         Returns a list of B entries, each a list of (refstart, refstop,
         querystart, querystop, matches, errors) tuples or None.
+
+        The counts run on ``device``: the diagonal-count kernel that ``W``
+        and the pairs' combined alphabet select
+        (:func:`~atropos_tpu_torch.align.insert_kernel.kernel_for`) on a
+        CUDA device, its plain version on the CPU.
         """
+        from atropos_tpu_torch.align import insert_kernel
+
         refs_u8 = np.ascontiguousarray(refs_u8, np.uint8)
         reads_u8 = np.ascontiguousarray(reads_u8, np.uint8)
         lengths = np.ascontiguousarray(lengths, np.int32)
@@ -672,14 +662,13 @@ class BatchInsertMatcher:
         n_symbols = len(
             np.union1d(np.unique(refs_u8[valid]), np.unique(reads_u8[valid]))
         )
-        dev = self.device
 
         def plane(array):
-            return torch.from_numpy(np.ascontiguousarray(array.T)).to(dev)
+            return torch.from_numpy(np.ascontiguousarray(array.T)).to(device)
 
-        counts = self.match_counts_device(
-            plane(refs_u8), plane(reads_u8),
-            torch.from_numpy(lengths).to(dev), n_symbols,
+        kernel = insert_kernel.kernel_for(W, n_symbols)
+        counts = kernel(
+            plane(refs_u8), plane(reads_u8), torch.from_numpy(lengths).to(device)
         )
         counts = counts.cpu().numpy().astype(np.int32)  # [W, B]
         return self.reconstruct(counts, refs_u8, reads_u8, lengths)

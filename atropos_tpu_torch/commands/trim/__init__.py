@@ -27,13 +27,9 @@ from atropos_tpu_torch.commands.trim.builder import TrimStackBuilder
 from atropos_tpu_torch.commands.trim.pipeline import (  # noqa: F401
     PairedEndTrimPipeline,
     RecordHandler,
-    ResultHandler,
-    ResultHandlerWrapper,
     SingleEndTrimPipeline,
     StatsRecordHandlerWrapper,
-    TrimPipeline,
     TrimSummary,
-    WorkerResultHandler,
     WriterResultHandler,
 )
 from atropos_tpu_torch.util import run_interruptible
@@ -152,9 +148,7 @@ class CommandRunner(BaseCommandRunner):
             PairedEndTrimPipeline if options.paired else SingleEndTrimPipeline
         )
         pipeline = pipeline_class(
-            record_handler,
-            WorkerResultHandler(WriterResultHandler(writers)),
-            engine=engine,
+            record_handler, WriterResultHandler(writers), engine=engine
         )
         self.summary.update(mode="serial", threads=1)
         return run_interruptible(pipeline, self, raise_on_error=True)

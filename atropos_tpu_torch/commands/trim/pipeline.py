@@ -11,8 +11,8 @@ The configurations the turbo runner declines run through the pipeline
 here: a batch flows through the modifier chain (whole-batch through the
 batched engine, :class:`~atropos_tpu_torch.engine.TrimEngine`, or per
 record where the engine declines too) -> filter routing -> formatting
-into a per-batch ``{path: [str]}`` result dict -> a ResultHandler that
-writes it. Counterpart of ``atropos_tpu/commands/trim/pipeline.py`` for
+into a per-batch ``{path: [str]}`` result dict -> a WriterResultHandler
+that writes it. Counterpart of ``atropos_tpu/commands/trim/pipeline.py`` for
 one process; its parallel pipelines and the order-preserving writer of
 ``--threads`` are not part of this package, and neither are per-record
 ``--stats`` tables.
@@ -103,57 +103,19 @@ class StatsRecordHandlerWrapper:
 # -- result delivery -------------------------------------------------------------
 
 
-class ResultHandler:
-    """Sink for per-batch result dicts."""
+class WriterResultHandler:
+    """Joins each output's strings of a batch's result dict and writes
+    them through a Writers object; closes the writers at the end."""
 
-    def start(self, worker=None):
-        pass
+    def __init__(self, writers):
+        self.writers = writers
 
-    def finish(self, total_batches=None):
-        pass
-
-    def write_result(self, batch_num, result):
-        raise NotImplementedError()
-
-
-class ResultHandlerWrapper(ResultHandler):
-    def __init__(self, handler):
-        self.handler = handler
-
-    def start(self, worker):
-        self.handler.start(worker)
-
-    def write_result(self, batch_num, result):
-        self.handler.write_result(batch_num, result)
-
-    def finish(self, total_batches=None):
-        self.handler.finish(total_batches=total_batches)
-
-
-class WorkerResultHandler(ResultHandlerWrapper):
-    """Joins each output's strings into one blob before forwarding."""
-
-    def write_result(self, batch_num, result):
-        self.handler.write_result(
-            batch_num,
-            dict(self.prepare_file(*item) for item in result.items()),
+    def write_result(self, result):
+        self.writers.write_result(
+            {path: "".join(strings) for path, strings in result.items()}
         )
 
-    def prepare_file(self, path, strings):
-        return (path, "".join(strings))
-
-
-class WriterResultHandler(ResultHandler):
-    """Terminal handler: hands results to a Writers object."""
-
-    def __init__(self, writers, compressed=False):
-        self.writers = writers
-        self.compressed = compressed
-
-    def write_result(self, batch_num, result):
-        self.writers.write_result(result, self.compressed)
-
-    def finish(self, total_batches=None):
+    def finish(self):
         self.writers.close()
 
 
@@ -174,9 +136,6 @@ class TrimPipeline(Pipeline):
         self.result_handler = result_handler
         self.engine = engine
 
-    def start(self, worker=None):
-        self.result_handler.start(worker)
-
     def add_to_context(self, context):
         context["results"] = defaultdict(list)
 
@@ -185,7 +144,7 @@ class TrimPipeline(Pipeline):
             super().handle_records(context, records)
         else:
             self._handle_batch_on_engine(context, records)
-        self.result_handler.write_result(context["index"], context["results"])
+        self.result_handler.write_result(context["results"])
 
     def _handle_batch_on_engine(self, context, records):
         handler = self.record_handler

@@ -388,6 +388,7 @@ class TrimEngine:
     def __init__(self, modifiers, paired, device):
         self.modifiers = modifiers
         self.paired = paired
+        self.device = device
         self.cutter1 = self.cutter2 = None
         self.matcher1 = self.matcher2 = None
         self.insert_cutter = None
@@ -410,7 +411,6 @@ class TrimEngine:
                 aligner.max_insert_mismatch_frac,
                 min_overlap=aligner.min_insert_overlap,
                 max_matches=100,
-                device=device,
             )
         self.cutter_index = idx
         self.pre_entries = modifiers.modifiers[:idx]
@@ -475,7 +475,9 @@ class TrimEngine:
                 query.encode("ascii"), np.uint8
             )
             lengths[b] = seq_len
-        found = self._insert_matcher.candidates(refs, queries, lengths)
+        found = self._insert_matcher.candidates(
+            refs, queries, lengths, self.device
+        )
         for b, (idx, _, _, _) in enumerate(items):
             candidates[idx] = found[b]
         return candidates

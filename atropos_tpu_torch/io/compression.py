@@ -116,7 +116,12 @@ class PipedGzipReader:
             return
         self.closed = True
         if self.process.poll() is None:
+            # closed before gzip exited (early, or between the end of its
+            # output and its exit): the status of a process stopped here
+            # says nothing of the input, so it is reaped and not checked
             self.process.terminate()
+            self.process.wait()
+            return
         self._check_status()
 
     def _check_status(self):

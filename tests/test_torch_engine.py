@@ -217,8 +217,8 @@ def test_batch_insert_matcher_candidates(monkeypatch, width, alphabet, poly_a, k
         expected = JaxInsertMatcher(err, min_overlap=1, max_matches=100).candidates(
             refs, queries, lengths
         )
-        got = PortInsertMatcher(err, min_overlap=1, max_matches=100, device="cpu").candidates(
-            refs, queries, lengths
+        got = PortInsertMatcher(err, min_overlap=1, max_matches=100).candidates(
+            refs, queries, lengths, "cpu"
         )
         assert got == expected
         assert sum(c is not None for c in got) > 20
