@@ -12,7 +12,7 @@ Modules carry the names of their ``atropos_tpu`` counterparts:
 
 - ``atropos_tpu_torch.util``      — host-side primitives (merge algebra, RMP, ...)
 - ``atropos_tpu_torch.align``     — NumPy oracle, plain PyTorch versions, CUDA kernels (DP, diagonal counts)
-- ``atropos_tpu_torch.io``        — sequence I/O (FASTA/FASTQ)
+- ``atropos_tpu_torch.io``        — sequence I/O (FASTA/FASTQ, FASTA+qual, colorspace, SAM/BAM, SRA)
 - ``atropos_tpu_torch.adapters``  — adapter parsing/matching/caching
 - ``atropos_tpu_torch.runtime``   — native FASTQ/FASTA parser, packer, formatter
 - ``atropos_tpu_torch.engine``    — the turbo single-end and paired-end runners and their device steps, and the batched TrimEngine of the per-record pipeline
@@ -36,18 +36,10 @@ class AtroposError(Exception):
 #: what is still to be ported, keyed by a short topic name; the values
 #: name the ROADMAP.md queue item that will bring it
 ROADMAP_ITEMS = {
-    "engine": (
-        "queue 1 item 4b (colorspace, FASTA+qual, SAM/BAM and SRA input, "
-        "and per-record --stats on the pipeline path)"
-    ),
     "device-quality": "queue 1 item 5 (device quality-trimming kernels)",
     "commands": "queue 1 item 6 (qc, detect and error commands, device counts)",
     "multi-gpu": (
         "queue 1 item 7 (multi-GPU, multi-host and --threads execution)"
-    ),
-    "insert-correct": (
-        "queue 1 item 11 (--correct-mismatches with the insert aligner: "
-        "overlap error correction of read pairs)"
     ),
 }
 

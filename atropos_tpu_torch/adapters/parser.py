@@ -8,7 +8,6 @@ A spec is ``[name=]SEQ`` where SEQ supports ``^``/``$`` anchoring,
 import itertools
 import re
 
-from atropos_tpu_torch import NotPortedError
 from atropos_tpu_torch.io.seqio import FastaReader
 
 _BRACE_TOKEN = re.compile(r"\{(\d+)\}")
@@ -59,13 +58,12 @@ class AdapterParser:
 
     def __init__(self, colorspace=False, cache=None, **kwargs):
         from atropos_tpu_torch.adapters.model import Adapter
+        from atropos_tpu_torch.adapters.colorspace import ColorspaceAdapter
 
         self.colorspace = colorspace
         self.cache = cache
         self.constructor_args = kwargs
-        if colorspace:
-            raise NotPortedError("colorspace adapters", "engine")
-        self.adapter_class = Adapter
+        self.adapter_class = ColorspaceAdapter if colorspace else Adapter
 
     def parse(self, spec, cmdline_type="back"):
         """Yield the adapter(s) for one spec (``file:`` yields several)."""

@@ -23,11 +23,12 @@ from atropos_tpu_torch.align.flags import (  # noqa: F401
 )
 from atropos_tpu_torch.align.oracle import (  # noqa: F401
     Aligner,
+    MultiAligner,
     compare_prefixes,
     compare_suffixes,
     locate,
 )
-from atropos_tpu_torch.util import RandomMatchProbability
+from atropos_tpu_torch.util import RandomMatchProbability, reverse_complement
 
 
 class Match:
@@ -183,9 +184,11 @@ class InsertAligner:
     :mod:`atropos_tpu_torch.align.insert_kernel`). The turbo paired runner
     makes every decision of :meth:`match_insert` vectorized on the host
     from these parameters; the per-record pipeline calls
-    :meth:`match_insert` per pair with the batch's candidates. Both use the
-    same thresholds, the same order and the same float64 random-match
-    probability (:class:`RandomMatchProbability`).
+    :meth:`match_insert` per pair with the batch's candidates, or, where
+    the reference runs it without its batched engine (colorspace,
+    ``--stats``), with the scalar :class:`MultiAligner`, as the reference
+    does. All use the same thresholds, the same order and the same float64
+    random-match probability (:class:`RandomMatchProbability`).
     """
 
     def __init__(
@@ -219,8 +222,13 @@ class InsertAligner:
         self.base_probs = base_probs or dict(match_prob=0.25, mismatch_prob=0.75)
         self.adapter_wildcards = adapter_wildcards
         self.read_wildcards = read_wildcards
+        self.aligner = MultiAligner(
+            max_insert_mismatch_frac,
+            START_WITHIN_SEQ1 | STOP_WITHIN_SEQ2,
+            min_insert_overlap,
+        )
 
-    def match_insert(self, seq1, seq2, precomputed_matches):
+    def match_insert(self, seq1, seq2, precomputed_matches=False):
         """Try to find the insert overlap between a read pair.
 
         Returns ``(insert_match, adapter_match1, adapter_match2)`` where the
@@ -230,8 +238,7 @@ class InsertAligner:
         ``precomputed_matches`` carries the candidate alignments of the pair
         that :class:`~atropos_tpu_torch.align.batched.BatchInsertMatcher`
         computed for the batch (``None`` meaning "computed, no
-        candidates"); the scalar ``MultiAligner`` of the reference has no
-        counterpart here.
+        candidates"); ``False`` (the default) runs the scalar aligner.
         """
         seq_len1 = len(seq1)
         seq_len2 = len(seq2)
@@ -287,7 +294,10 @@ class InsertAligner:
                 _create_match(a2_length, seq_len2),
             )
 
-        insert_matches = precomputed_matches
+        if precomputed_matches is False:
+            insert_matches = self.aligner.locate(reverse_complement(seq2), seq1)
+        else:
+            insert_matches = precomputed_matches
         if insert_matches:
             filtered_matches = []
             for insert_match in insert_matches:

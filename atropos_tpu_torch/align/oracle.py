@@ -18,9 +18,11 @@ reference's Cython kernels (``atropos/align/_align.pyx``):
 - final-column scan when the last column of the matrix is reached.
 
 It is deliberately simple and unoptimized: it exists to validate the batched
-kernels read by read and to serve the scalar ``Adapter.match_to`` path. It
-is not the plain version of any kernel, and nothing on the main path calls
-its ``locate`` per read.
+kernels read by read and to serve the scalar ``Adapter.match_to`` path
+and, with :class:`MultiAligner`, the scalar insert match of the pipeline
+configurations the reference runs without its batched engine (colorspace,
+``--stats``), as the reference does. It is not the plain version of any
+kernel, and nothing on the main path calls its ``locate`` per read.
 """
 
 import numpy as np
@@ -28,6 +30,7 @@ import numpy as np
 from atropos_tpu_torch.align.flags import (
     ACGT_TABLE,
     IUPAC_TABLE,
+    OVERHANG_MULTIPLIER,
     SEMIGLOBAL,
     START_WITHIN_SEQ1,
     START_WITHIN_SEQ2,
@@ -370,3 +373,136 @@ def compare_suffixes(suffix_ref, suffix_query, wildcard_ref=False, wildcard_quer
         matches,
         errors,
     )
+
+class MultiAligner:
+    """No-indel, no-wildcard variant returning up to ``max_matches``
+    candidate alignments. Overhangs are costed with OVERHANG_MULTIPLIER so
+    that the band logic also limits how far an alignment may hang over.
+    Used by the paired-end insert matcher."""
+
+    def __init__(self, max_error_rate, flags=SEMIGLOBAL, min_overlap=1):
+        self.max_error_rate = max_error_rate
+        self.flags = flags
+        self._min_overlap = min_overlap
+
+    def locate(self, reference, query, max_matches=100):
+        """Return a list of candidate (refstart, refstop, querystart,
+        querystop, matches, errors) tuples, or None if there are none."""
+        m = len(reference)
+        n = len(query)
+        s1 = reference.encode("ascii")
+        s2 = query.encode("ascii")
+
+        max_error_rate = self.max_error_rate
+        start_in_ref = bool(self.flags & START_WITHIN_SEQ1)
+        start_in_query = bool(self.flags & START_WITHIN_SEQ2)
+        stop_in_ref = bool(self.flags & STOP_WITHIN_SEQ1)
+        stop_in_query = bool(self.flags & STOP_WITHIN_SEQ2)
+
+        k = int(max_error_rate * m)
+        max_cost = m + n
+
+        max_n = n
+        min_n = 0
+        if not start_in_query:
+            max_n = min(n, m + k)
+        if not stop_in_query:
+            min_n = max(0, n - m - k)
+
+        cost = [0] * (m + 1)
+        matches = [0] * (m + 1)
+        origin = [0] * (m + 1)
+
+        if not start_in_ref and not start_in_query:
+            for i in range(m + 1):
+                cost[i] = max(i, min_n) * OVERHANG_MULTIPLIER
+        elif start_in_ref and not start_in_query:
+            for i in range(m + 1):
+                cost[i] = min_n * OVERHANG_MULTIPLIER
+                origin[i] = min(0, min_n - i)
+        elif not start_in_ref and start_in_query:
+            for i in range(m + 1):
+                cost[i] = i * OVERHANG_MULTIPLIER
+                origin[i] = max(0, min_n - i)
+        else:
+            for i in range(m + 1):
+                cost[i] = min(i, min_n) * OVERHANG_MULTIPLIER
+                origin[i] = min_n - i
+
+        last = m if start_in_ref else min(m, k + 1)
+
+        result_matches = []
+        exact_match = -1
+        broke = False
+
+        for j in range(min_n + 1, max_n + 1):
+            tmp_cost = cost[0]
+            tmp_matches = matches[0]
+            tmp_origin = origin[0]
+            if start_in_query:
+                origin[0] = j
+            else:
+                cost[0] = j * OVERHANG_MULTIPLIER
+            qc = s2[j - 1]
+            for i in range(1, last + 1):
+                if s1[i - 1] == qc:
+                    c = tmp_cost
+                    o = tmp_origin
+                    mt = tmp_matches + 1
+                else:
+                    c = tmp_cost + 1
+                    o = tmp_origin
+                    mt = tmp_matches
+                tmp_cost = cost[i]
+                tmp_matches = matches[i]
+                tmp_origin = origin[i]
+                cost[i] = c
+                matches[i] = mt
+                origin[i] = o
+
+            while last >= 0 and cost[last] > k:
+                last -= 1
+            if last < m:
+                last += 1
+            elif stop_in_query:
+                ccost = cost[m]
+                if ccost > max_cost:
+                    continue
+                length = m + min(origin[m], 0)
+                if length >= self._min_overlap and ccost <= length * max_error_rate:
+                    result_matches.append((origin[m], ccost, matches[m], m, j))
+                    if ccost == 0 and matches[m] == m:
+                        exact_match = len(result_matches) - 1
+                        broke = True
+                        break
+                    if len(result_matches) >= max_matches:
+                        broke = True
+                        break
+
+        if not broke and max_n == n:
+            first_i = 0 if stop_in_ref else m
+            for i in range(first_i, m + 1):
+                ccost = cost[i]
+                if ccost > max_cost:
+                    continue
+                length = i + min(origin[i], 0)
+                if length >= self._min_overlap and ccost <= length * max_error_rate:
+                    result_matches.append((origin[i], ccost, matches[i], i, n))
+
+        if not result_matches:
+            return None
+        if exact_match >= 0:
+            result_matches = [result_matches[exact_match]]
+        return [self._create_match(m_) for m_ in result_matches]
+
+    @staticmethod
+    def _create_match(match):
+        m_origin, m_cost, m_matches, m_ref_stop, m_query_stop = match
+        if m_origin >= 0:
+            start1 = 0
+            start2 = m_origin
+        else:
+            start1 = -m_origin
+            start2 = 0
+        assert m_ref_stop - start1 > 0
+        return (start1, m_ref_stop, start2, m_query_stop, m_matches, m_cost)

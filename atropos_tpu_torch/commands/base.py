@@ -15,7 +15,7 @@ from collections.abc import Sequence
 
 from atropos_tpu_torch import AtroposError, NotPortedError, __version__
 from atropos_tpu_torch.adapters import AdapterCache
-from atropos_tpu_torch.io.seqio import open_reader
+from atropos_tpu_torch.io.seqio import open_reader, sra_reader
 from atropos_tpu_torch.util import Const, MergingDict, Summarizable, Timing
 
 
@@ -180,7 +180,9 @@ class BaseCommandRunner:
             name: getattr(options, name) for name in cls._READER_OPTIONS
         }
         if getattr(options, "sra_reader", None):
-            raise NotPortedError("SRA streaming input", "engine")
+            reader = sra_reader(reader=options.sra_reader, **common)
+            options.sra_reader = None
+            return reader
         interleaved = bool(options.interleaved_input)
         if interleaved:
             input1, input2, qualfile = options.interleaved_input, None, None

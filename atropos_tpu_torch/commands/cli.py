@@ -18,7 +18,7 @@ import sys
 import textwrap
 import urllib
 
-from atropos_tpu_torch import NotPortedError, __version__
+from atropos_tpu_torch import __version__
 from atropos_tpu_torch.io import STDERR, STDOUT, check_path, check_writeable, resolve_path
 from atropos_tpu_torch.io.compression import splitext_compressed
 from atropos_tpu_torch.io.seqio import PAIRED, SINGLE
@@ -258,9 +258,38 @@ class BaseCommandParser:
             options.paired = True
 
     def _open_sra(self, options):
-        """SRA streaming (``atropos_tpu/commands/cli.py::_open_sra``) has
-        no counterpart here yet; nothing is fetched."""
-        raise NotPortedError("SRA streaming input (-sra)", "engine")
+        """Stream directly from an SRA accession when the optional
+        srastream library is installed (reference
+        ``atropos/commands/cli.py:262-283``)."""
+        if options.format not in ("fastq", "sam", "bam", None):
+            raise ValueError(
+                "Invalid file format for SRA accession: {}".format(
+                    options.format
+                )
+            )
+        options.format = "fastq"
+        logging.getLogger().debug(
+            "Opening reader for SRA Accession %s", options.sra_accession
+        )
+        try:
+            from srastream import SraReader
+
+            reader = SraReader(
+                options.sra_accession, batch_size=options.batch_size or 1000
+            )
+            reader.start()
+            options.sra_reader = reader
+            options.paired = reader.paired
+        except Exception:
+            logging.getLogger().exception(
+                "Error while fetching accession %s from SRA",
+                options.sra_accession,
+            )
+            self.parser.error(
+                "Unable to read from accession {}".format(
+                    options.sra_accession
+                )
+            )
 
     @staticmethod
     def _derive_sample_id(options):

@@ -1,12 +1,16 @@
 """FastQC-style read statistics over fixed-shape count tensors.
 
-Counterpart of ``atropos_tpu/commands/stats.py``, pruned to what the
-turbo runners' ``--stats`` uses: statistics accumulate into dense count
-matrices — ``[Lmax, 256]`` per-position byte composition for bases and
-qualities, dense histogram vectors for length and GC content — straight
-from the padded ``[B, W]`` byte matrices the runners already hold
-(:meth:`ReadStatistics.collect_matrices`). Summaries render to the exact
-dict schema of the reference, so reports are unchanged.
+Counterpart of ``atropos_tpu/commands/stats.py`` for ``trim --stats``:
+statistics accumulate into dense count matrices — ``[Lmax, 256]``
+per-position byte composition for bases and qualities, dense histogram
+vectors for length and GC content — straight from the padded ``[B, W]``
+byte matrices the turbo runners already hold
+(:meth:`ReadStatistics.collect_matrices`). The per-record pipeline, which
+the reference feeds one record at a time (``collect_record``), hands over
+a batch's records at once (:meth:`ReadStatistics.collect_records`), with
+the reference's per-record order and rules kept, including the per-tile
+tables of ``--stats :tiles``. Summaries render to the exact dict schema of
+the reference, so reports are unchanged.
 
 The per-position byte counts run where the run runs:
 :func:`position_byte_counts` is one torch function on the statistics'
@@ -15,6 +19,8 @@ accelerator and with a host bincount below 256 reads or on the CPU; both
 give the same integers). ``DEVICE_STATS_COUNTS`` counts its calls by
 device type, so a run can show that the counts ran on the card.
 """
+import re
+
 import numpy as np
 import torch
 
@@ -22,9 +28,13 @@ from atropos_tpu_torch import resolve_device
 from atropos_tpu_torch.util import (
     Histogram,
     Mergeable,
+    NestedDict,
     Summarizable,
     ordered_dict,
 )
+
+DEFAULT_TILE_KEY_REGEXP = r"^(?:[^\:]+\:){4}([^\:]+)"
+"""Tile id extractor for the standard Illumina read-name format."""
 
 _ASCII = 256
 
@@ -148,14 +158,25 @@ class PositionByteCounts(Mergeable, Summarizable):
 
 
 class TilePositionCounts(Mergeable, Summarizable):
-    """Per-tile :class:`PositionByteCounts` (``--stats :tiles`` mode). The
-    turbo runners decline per-tile statistics, which need every record's
-    name; what is kept here is how a table of tiles merges and renders."""
+    """Per-tile :class:`PositionByteCounts` (``--stats :tiles`` mode), in
+    the order the tiles first appear. The turbo runners decline per-tile
+    statistics, which need every record's name; the per-record pipeline
+    fills them."""
 
-    def __init__(self, is_qualities=False, quality_base=33):
+    def __init__(self, is_qualities=False, quality_base=33, device="cpu"):
         self.tiles = {}
         self.is_qualities = is_qualities
         self.quality_base = quality_base
+        self.device = device
+
+    def table_for(self, tile):
+        table = self.tiles.get(tile)
+        if table is None:
+            table = PositionByteCounts(
+                self.is_qualities, self.quality_base, self.device
+            )
+            self.tiles[tile] = table
+        return table
 
     def merge(self, other):
         if not isinstance(other, TilePositionCounts):
@@ -199,11 +220,13 @@ class TilePositionCounts(Mergeable, Summarizable):
 
 
 class ReadStatistics:
-    """Read-level and position-level statistics for one input source,
-    without per-tile tables. ``device`` is where the position counts run
-    (``None`` means ``cuda``)."""
+    """Read-level and position-level statistics for one input source.
+    ``device`` is where the position counts run (``None`` means
+    ``cuda``); ``tiles`` (``True`` or a regular expression) adds the
+    per-tile quality tables when the input has qualities."""
 
-    def __init__(self, qualities=None, quality_base=33, device=None):
+    def __init__(self, qualities=None, quality_base=33, tiles=None,
+                 device=None):
         self.device = resolve_device(device)
         self.count = 0
         self.sequence_lengths = DenseHistogram()
@@ -212,9 +235,16 @@ class ReadStatistics:
 
         self.qualities = qualities
         self.quality_base = quality_base
+        self.tile_key_regexp = None
         self.sequence_qualities = None
         self.base_qualities = None
+        self.tile_base_qualities = None
+        self.tile_sequence_qualities = None
         if qualities:
+            pattern = DEFAULT_TILE_KEY_REGEXP if tiles is True else tiles
+            if isinstance(pattern, str):
+                pattern = re.compile(pattern)
+            self.tile_key_regexp = pattern
             self._init_qualities()
 
     def _init_qualities(self):
@@ -223,8 +253,73 @@ class ReadStatistics:
             is_qualities=True, quality_base=self.quality_base,
             device=self.device,
         )
+        if self.tile_key_regexp:
+            self.tile_base_qualities = TilePositionCounts(
+                is_qualities=True, quality_base=self.quality_base,
+                device=self.device,
+            )
+            self.tile_sequence_qualities = NestedDict()
+
+    @property
+    def track_tiles(self):
+        return self.qualities and self.tile_key_regexp is not None
+
+    def _tile_of_name(self, name):
+        found = self.tile_key_regexp.match(name)
+        if not found:
+            raise ValueError(
+                "{} did not match {}".format(self.tile_key_regexp, name)
+            )
+        return found.group(1)
 
     # -- collection ----------------------------------------------------------
+
+    def collect_records(self, records):
+        """Collect a batch of records, each a (name, sequence, qualities)
+        triple, with the reference's per-record ``collect_record`` rules:
+        the qualities switch on at the first record whose qualities are
+        non-empty (when the table started without knowing), a record
+        without qualities adds none, and every histogram sees the records
+        in their order. Each table's position counts are one call a batch
+        (one a tile for the tile tables)."""
+        if self.qualities is None:
+            first = next(
+                (row for row, record in enumerate(records) if record[2]),
+                len(records),
+            )
+            self._collect_record_rows(records[:first])
+            if first == len(records):
+                return
+            self.qualities = True
+            self._init_qualities()
+            records = records[first:]
+        self._collect_record_rows(records)
+
+    def _collect_record_rows(self, records):
+        count = len(records)
+        if count == 0:
+            return
+        lengths = np.fromiter(
+            (len(record[1]) for record in records), np.int64, count
+        )
+        seqs = np.zeros((count, int(lengths.max())), np.uint8)
+        for row, record in enumerate(records):
+            seqs[row, : lengths[row]] = np.frombuffer(
+                record[1].encode("ascii"), np.uint8
+            )
+        self._collect_bases(seqs, lengths)
+        if not self.qualities:
+            return
+        rows = [row for row, record in enumerate(records) if record[2] is not None]
+        if not rows:
+            return
+        quals = np.zeros_like(seqs[rows])
+        for out_row, row in enumerate(rows):
+            quals[out_row, : lengths[row]] = np.frombuffer(
+                records[row][2].encode("ascii"), np.uint8
+            )
+        names = [records[row][0] for row in rows] if self.track_tiles else None
+        self._collect_qualities(quals, lengths[rows], names)
 
     def collect_matrices(self, seqs, quals, lengths):
         """Vectorized collection straight from padded uint8 matrices
@@ -236,31 +331,29 @@ class ReadStatistics:
         if self.qualities is None and quals is not None:
             self.qualities = True
             self._init_qualities()
+        self._collect_bases(seqs, lengths)
+        if self.qualities and quals is not None:
+            self._collect_qualities(quals, lengths)
 
-        self.count += count
+    def _collect_bases(self, seqs, lengths):
+        self.count += lengths.shape[0]
         self.sequence_lengths.add_vector(lengths)
-
         nonempty = lengths > 0
         if not nonempty.any():
             return
-        # clip padded matrices to the longest read so position tables
-        # never grow all-zero rows beyond the observed lengths
-        width = int(lengths.max())
-        if seqs.shape[1] > width:
-            seqs = seqs[:, :width]
-            if quals is not None:
-                quals = quals[:, :width]
-        else:
-            width = seqs.shape[1]
-        valid = np.arange(width)[None, :] < lengths[:, None]
+        seqs, valid = _clip_to_longest(seqs, lengths)
         gc = (((seqs == ord("C")) | (seqs == ord("G"))) & valid).sum(axis=1)
         live = lengths[nonempty]
         gc_pct = np.rint(gc[nonempty] * 100 / live).astype(np.int64)
         self.sequence_gc.add_vector(gc_pct)
         self.bases.add_batch(seqs[nonempty], live)
 
-        if not (self.qualities and quals is not None):
+    def _collect_qualities(self, quals, lengths, names=None):
+        nonempty = lengths > 0
+        if not nonempty.any():
             return
+        quals, valid = _clip_to_longest(quals, lengths)
+        live = lengths[nonempty]
         quals = quals[nonempty]
         sums = (quals * valid[nonempty]).sum(axis=1, dtype=np.int64)
         mean_quality = np.rint(
@@ -269,6 +362,19 @@ class ReadStatistics:
         for value in mean_quality:
             self.sequence_qualities[int(value)] += 1
         self.base_qualities.add_batch(quals, live)
+        if not self.track_tiles:
+            return
+        kept = [name for name, keep in zip(names, nonempty) if keep]
+        by_tile = {}
+        for row, name in enumerate(kept):
+            tile = self._tile_of_name(name)
+            self.tile_sequence_qualities[tile][int(mean_quality[row])] += 1
+            by_tile.setdefault(tile, []).append(row)
+        for tile, rows in by_tile.items():
+            tile_live = live[rows]
+            self.tile_base_qualities.table_for(tile).add_batch(
+                quals[rows, : int(tile_live.max())], tile_live
+            )
 
     # -- rendering -----------------------------------------------------------
 
@@ -283,7 +389,19 @@ class ReadStatistics:
             summary["qualities"] = self.sequence_qualities
         if self.base_qualities is not None:
             summary["base_qualities"] = self.base_qualities
+        if self.track_tiles:
+            summary["tile_base_qualities"] = self.tile_base_qualities
+            summary["tile_sequence_qualities"] = self.tile_sequence_qualities
         return summary
+
+
+def _clip_to_longest(matrix, lengths):
+    """The matrix clipped to its longest row (so that position tables never
+    grow all-zero rows beyond the observed lengths) and the mask of the
+    positions below each row's length."""
+    width = min(int(lengths.max()), matrix.shape[1])
+    matrix = matrix[:, :width]
+    return matrix, np.arange(width)[None, :] < lengths[:, None]
 
 
 class SingleEndReadStatistics(ReadStatistics):
@@ -295,6 +413,12 @@ class PairedEndReadStatistics:
     def __init__(self, **kwargs):
         self.read1 = ReadStatistics(**kwargs)
         self.read2 = ReadStatistics(**kwargs)
+
+    def collect_records(self, records):
+        """``records``: a pair of (name, sequence, qualities) triples a
+        pair."""
+        self.read1.collect_records([pair[0] for pair in records])
+        self.read2.collect_records([pair[1] for pair in records])
 
     def summarize(self):
         return dict(read1=self.read1.summarize(), read2=self.read2.summarize())

@@ -12,10 +12,11 @@ and executed by one of two modes (counterpart of
   per-record pipeline (:mod:`atropos_tpu_torch.commands.trim.pipeline`)
   with whole-batch adapter matching on the run's device
   (:class:`~atropos_tpu_torch.engine.TrimEngine`) where the engine takes
-  the configuration.
+  the configuration, and fully per record where it declines too
+  (colorspace; ``--stats``, whose tables the reference collects per
+  record), as in the reference.
 
-The parallel (``--threads``) and multi-host modes of that module, and
-per-record ``--stats`` in the serial mode, raise
+The parallel (``--threads``) and multi-host modes of that module raise
 :class:`~atropos_tpu_torch.NotPortedError`.
 """
 import logging
@@ -53,8 +54,6 @@ def check_ported(options):
     """Raise :class:`NotPortedError` for every option that selects a
     path outside the ported slices. Runs before the input is opened, so
     nothing is read or written for such a request."""
-    if options.colorspace:
-        raise NotPortedError("colorspace trimming", "engine")
     if options.threads is not None:
         raise NotPortedError("--threads", "multi-gpu")
 
@@ -137,13 +136,6 @@ class CommandRunner(BaseCommandRunner):
             self.summary.update(mode="turbo", threads=1)
             return turbo.run()
 
-        if not isinstance(record_handler, RecordHandler):
-            # the reference collects the tables per record here
-            # (StatsRecordHandlerWrapper.handle_record); raised before
-            # the first batch is read or written
-            raise NotPortedError(
-                "--stats on a configuration the turbo runner declines", "engine"
-            )
         pipeline_class = (
             PairedEndTrimPipeline if options.paired else SingleEndTrimPipeline
         )

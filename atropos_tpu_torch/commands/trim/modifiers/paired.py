@@ -16,12 +16,11 @@ reference walks the overlap base by base,
 ``atropos/commands/trim/modifiers.py:201-357``); every decision rule and
 tie-break reproduces the reference bit for bit, including its
 odd-but-shipped behaviors (see inline notes). It serves
-``--merge-overlapping``; with the insert aligner ``--correct-mismatches``
-raises :class:`~atropos_tpu_torch.NotPortedError`.
+``--merge-overlapping`` and ``--correct-mismatches`` with either aligner.
 """
 import numpy as np
 
-from atropos_tpu_torch import AtroposError, NotPortedError
+from atropos_tpu_torch import AtroposError
 from atropos_tpu_torch.align import (
     Aligner,
     InsertAligner,
@@ -208,7 +207,8 @@ class InsertAdapterCutter(ReadPairModifier, ErrorCorrectorMixin):
     (ref ``modifiers.py:359-509``).
 
     Flow per pair: insert match (from the ``insert_candidates`` the
-    batched engine computed on the device) -> fallback independent adapter
+    batched engine computed on the device, or the scalar aligner where
+    the pipeline runs without the engine) -> fallback independent adapter
     matches ->
     optional symmetric-match duplication when only one side matched ->
     optional error correction -> per-read trim.
@@ -224,10 +224,6 @@ class InsertAdapterCutter(ReadPairModifier, ErrorCorrectorMixin):
         min_insert_overlap=1,
         **aligner_args,
     ):
-        if mismatch_action is not None:
-            raise NotPortedError(
-                "--correct-mismatches with the insert aligner", "insert-correct"
-            )
         ErrorCorrectorMixin.__init__(self, mismatch_action)
         self.adapter1 = adapter1
         self.adapter2 = adapter2
@@ -260,7 +256,7 @@ class InsertAdapterCutter(ReadPairModifier, ErrorCorrectorMixin):
         at ``rstart`` in both mates."""
         return (len2 - rstart, len2, 0, rstart)
 
-    def __call__(self, read1, read2, insert_candidates):
+    def __call__(self, read1, read2, insert_candidates=False):
         len1, len2 = len(read1), len(read2)
         if min(len1, len2) < self.min_insert_len:
             return (read1, read2)

@@ -14,8 +14,7 @@ record where the engine declines too) -> filter routing -> formatting
 into a per-batch ``{path: [str]}`` result dict -> a WriterResultHandler
 that writes it. Counterpart of ``atropos_tpu/commands/trim/pipeline.py`` for
 one process; its parallel pipelines and the order-preserving writer of
-``--threads`` are not part of this package, and neither are per-record
-``--stats`` tables.
+``--threads`` are not part of this package.
 """
 from collections import defaultdict
 from collections.abc import Sequence
@@ -46,6 +45,9 @@ class RecordHandler:
         self.formatters.format(context["results"], dest, *reads)
         return (dest, reads)
 
+    def finish_batch(self):
+        pass
+
     def summarize(self):
         return dict(
             trim=dict(
@@ -62,10 +64,14 @@ class StatsRecordHandlerWrapper:
     Post-trim statistics are kept per destination filter, so reports can
     show the composition of kept vs discarded reads separately. The turbo
     runner fills the tables (``pre`` and ``post``: source -> statistics,
-    ``post`` under each destination filter) from its batch matrices;
-    ``kwargs`` go to every statistics object (``qualities``,
-    ``quality_base``, ``device``), each side's options from
-    ``stats_args`` beside them.
+    ``post`` under each destination filter) from its batch matrices; the
+    per-record pipeline through :meth:`handle_record`, which notes each
+    record's bytes where the reference collects them, and
+    :meth:`finish_batch`, which counts a batch's records into each table
+    at once (the position counts run on the statistics' device, one call
+    a table and batch). ``kwargs`` go to every statistics object
+    (``qualities``, ``quality_base``, ``device``), each side's options
+    from ``stats_args`` beside them.
     """
 
     def __init__(self, record_handler, paired, stats_args, **kwargs):
@@ -80,6 +86,32 @@ class StatsRecordHandlerWrapper:
         if "post" in stats_args:
             self.post = {}
             self.post_kwargs = dict(kwargs, **stats_args["post"])
+        #: statistics object -> the records noted for it in this batch
+        self._pending = {}
+
+    def _note(self, table, kwargs, source, read1, read2=None):
+        if source not in table:
+            table[source] = self.read_statistics_class(**kwargs)
+        record = (read1.name, read1.sequence, read1.qualities)
+        if read2 is not None:
+            record = (record, (read2.name, read2.sequence, read2.qualities))
+        self._pending.setdefault(table[source], []).append(record)
+
+    def handle_record(self, context, read1, read2=None):
+        source = context["source"]
+        if self.pre is not None:
+            self._note(self.pre, self.pre_kwargs, source, read1, read2)
+        dest, reads = self.record_handler.handle_record(context, read1, read2)
+        if self.post is not None:
+            table = self.post.setdefault(dest, {})
+            self._note(table, self.post_kwargs, source, *reads)
+        return (dest, reads)
+
+    def finish_batch(self):
+        """Count the records noted in this batch into their tables."""
+        pending, self._pending = self._pending, {}
+        for stats, records in pending.items():
+            stats.collect_records(records)
 
     def summarize(self):
         summary = self.record_handler.summarize()
@@ -99,6 +131,13 @@ class StatsRecordHandlerWrapper:
                 for dest, table in self.post.items()
             }
         return summary
+
+
+#: records (pairs) the pipeline ran through the modifier chain one at a
+#: time, without a batched engine: the reference's own route for colorspace
+#: and for ``--stats`` on a configuration the turbo runner declines
+PER_RECORD_COUNTS = {"records": 0}
+
 
 # -- result delivery -------------------------------------------------------------
 
@@ -142,8 +181,10 @@ class TrimPipeline(Pipeline):
     def handle_records(self, context, records):
         if self.engine is None:
             super().handle_records(context, records)
+            PER_RECORD_COUNTS["records"] += context["size"]
         else:
             self._handle_batch_on_engine(context, records)
+        self.record_handler.finish_batch()
         self.result_handler.write_result(context["results"])
 
     def _handle_batch_on_engine(self, context, records):

@@ -21,13 +21,14 @@ the back part over the remainders of the front-matched subset); every
 round of ``--times`` re-matches the still-matching subset on its trimmed
 forms. Batches are padded to powers of two from 64 reads
 (:func:`_bucket_batch`; the DP kernels take whole warps) and lengths to
-multiples of 32 (:func:`_bucket_len`). A colorspace run raises
-:class:`~atropos_tpu_torch.NotPortedError`.
+multiples of 32 (:func:`_bucket_len`). A colorspace run gets no engine
+(fallback reason ``"colorspace"``): its adapters match on the host with
+the scalar aligner, as in the reference, which runs no kernel there.
 """
 import numpy as np
 import torch
 
-from atropos_tpu_torch import NotPortedError, resolve_device
+from atropos_tpu_torch import resolve_device
 from atropos_tpu_torch.adapters import (
     PREFIX,
     SUFFIX,
@@ -422,10 +423,10 @@ class TrimEngine:
         this configuration is eligible, else None (the pipeline then runs
         fully scalar). Every outcome is counted in :data:`BUILD_COUNTS`;
         fallbacks record their reason."""
-        if options.colorspace:
-            raise NotPortedError("colorspace trimming", "engine")
         reason = None
-        if modifiers.has_modifier(AdapterCutter):
+        if options.colorspace:
+            reason = "colorspace"
+        elif modifiers.has_modifier(AdapterCutter):
             if len(modifiers.modifier_indexes[AdapterCutter]) != 1:
                 reason = "multiple AdapterCutter stages"
         elif modifiers.has_modifier(InsertAdapterCutter):

@@ -48,12 +48,13 @@ Quality and NextSeq trimming run on the host-native path (the windows are
 computed from the chunk buffer before the upload). Side files (info,
 rest, wildcard), ``--stats`` (pre/post statistics collected from the
 batch matrices, their position counts on the run's device), ``{name}``
-demultiplexing and ``-w`` mate overwrite run on the runners as in
-``atropos_tpu``. What the turbo runners decline (``build`` returns None)
-runs through the per-record pipeline and its batched engine
+demultiplexing, ``-w`` mate overwrite and the overlap error correction of
+``--correct-mismatches`` with the insert aligner (the corrected records'
+bytes patched into the native formatter's output) run on the runners as
+in ``atropos_tpu``. What the turbo runners decline (``build`` returns
+None) runs through the per-record pipeline and its batched engine
 (:mod:`atropos_tpu_torch.engine`), as in ``atropos_tpu``; the sharded
-mesh, the device quality kernels and overlap error correction raise
-:class:`~atropos_tpu_torch.NotPortedError`.
+mesh and the device quality kernels are not part of this package.
 
 Output is byte-identical to ``atropos_tpu``; all summary statistics
 (per-adapter histograms, trimmed-bp counters, filter counts) are
@@ -1447,9 +1448,7 @@ class _PairInflight:
 class _InsertPair:
     """Turbo implementation of the insert-align paired stage: the
     device+host twin of ``InsertAdapterCutter`` over whole batches
-    (counterpart of ``atropos_tpu/engine/turbo.py::_InsertPair`` without
-    its overlap error correction, which raises ``NotPortedError`` when the
-    stack is built).
+    (counterpart of ``atropos_tpu/engine/turbo.py::_InsertPair``).
 
     Device side (one fused step per batch): both mates' decode and
     fallback-adapter DP kernels, then the diagonal matcher over
@@ -1467,8 +1466,11 @@ class _InsertPair:
     reconstruction for slot-overflow pairs (:data:`SLOT_OVERFLOWS`) and the
     counts-plane path, random-match-probability filtering,
     probability-ordered candidate selection with both overhang-adapter
-    checks, fallback independent matches, symmetric-match duplication and
-    per-mate trims + statistics.
+    checks, fallback independent matches, symmetric-match duplication,
+    the overlap error correction of ``--correct-mismatches``
+    (:meth:`_correct`, written back into the batch's host matrices and
+    patched into the output by :meth:`_build_alt`) and per-mate trims +
+    statistics.
     """
 
     def __init__(self, lane1, lane2, cutter):
@@ -1676,10 +1678,18 @@ class _InsertPair:
         res2 = self._mate_res(lane2, arr[rpa1 : rpa1 + rpa2], wl2)
 
         sel = self._select(cd, tok1, tok2, wl1, wl2)
-        m1, m2 = self._combine(sel, res1, res2, wl1, wl2)
-        for tok, mate, ks, wl in ((tok1, m1, ks1, wl1), (tok2, m2, ks2, wl2)):
+        m1, m2, info = self._combine(sel, res1, res2, wl1, wl2)
+        len1_eff, len2_eff = wl1, wl2
+        corr1 = corr2 = None
+        if self.cutter.mismatch_action is not None:
+            len1_eff, len2_eff, corr1, corr2 = self._correct(
+                tok1, tok2, wl1, wl2, sel, info
+            )
+        for tok, mate, ks, len_eff in (
+            (tok1, m1, ks1, len1_eff), (tok2, m2, ks2, len2_eff),
+        ):
             tok.win_start = ks
-            tok.win_stop = (ks + wl).astype(np.int32)
+            tok.win_stop = (ks + len_eff).astype(np.int32)
             tok.match_data = dict(
                 matched=mate["present"],
                 best_idx=np.where(mate["present"], 0, -1),
@@ -1690,8 +1700,12 @@ class _InsertPair:
                 errors=mate["errors"],
                 front=np.zeros(tok.batch, bool),
             )
-        kp1 = self._apply_mate(lane1, tok1, m1, ks1, wl1, 0)
-        kp2 = self._apply_mate(lane2, tok2, m2, ks2, wl2, 1)
+        kp1 = self._apply_mate(lane1, tok1, m1, ks1, len1_eff, 0)
+        kp2 = self._apply_mate(lane2, tok2, m2, ks2, len2_eff, 1)
+        if corr1 is not None:
+            tok1.alt = self._build_alt(corr1, ks1, kp1)
+        if corr2 is not None:
+            tok2.alt = self._build_alt(corr2, ks2, kp2)
         return ks1, kp1, m1["present"], ks2, kp2, m2["present"]
 
     @staticmethod
@@ -1833,6 +1847,10 @@ class _InsertPair:
             mm=np.zeros(batch, np.int64),
             alen1=np.zeros(batch, np.int64),
             alen2=np.zeros(batch, np.int64),
+            # selected-candidate geometry for overlap error correction
+            cost=np.zeros(batch, np.int64),
+            r1e=np.zeros(batch, np.int64),
+            r2e=np.zeros(batch, np.int64),
         )
         m = np.minimum(wl1, wl2).astype(np.int64)
         out["eligible"] = eligible = m >= self.cutter.min_insert_len
@@ -1853,8 +1871,9 @@ class _InsertPair:
         keep = prob <= aligner.insert_max_rmp
         if not keep.any():
             return out
-        b_all, rank_all, offset, ims, prob = (
-            a[keep] for a in (b_all, rank_all, offset, ims, prob)
+        s_all, b_all, rank_all, offset, ims, prob, qstop, mt = (
+            a[keep]
+            for a in (s_all, b_all, rank_all, offset, ims, prob, qstop, mt)
         )
 
         # _match evaluation per candidate (align/__init__.py:240-284)
@@ -1888,14 +1907,25 @@ class _InsertPair:
         out["mm"][has] = np.minimum(e1, e2)[rowsel]
         out["alen1"][has] = alen1[rowsel]
         out["alen2"][has] = alen2[rowsel]
+        # selected insert_match geometry for the correction stage:
+        # r1 overlap = [0, querystop), r2 overlap = [0, m - s); cost is
+        # the candidate's mismatch count over the truncated overlap
+        out["cost"][has] = ims[rowsel] - mt[rowsel]
+        out["r1e"][has] = qstop[rowsel]
+        out["r2e"][has] = m_eff[b_all[rowsel]] - s_all[rowsel]
         return out
 
     def _combine(self, sel, res1, res2, wl1, wl2):
         """Selection + fallback + symmetric duplication -> per-mate match
-        field arrays (InsertAdapterCutter.__call__ flow)."""
+        field arrays plus correction-frame info
+        (InsertAdapterCutter.__call__ flow)."""
         batch = wl1.shape[0]
         has = sel["has"]
         ipass = has & ~sel["only"]
+        info = dict(
+            frame=np.zeros(batch, bool),
+            frame_rstart=np.zeros(batch, np.int64),
+        )
 
         def blank():
             zero = np.zeros(batch, np.int64)
@@ -1939,6 +1969,15 @@ class _InsertPair:
                 ("errors", "cost"),
             ):
                 mate[field] = np.where(fpres, res[src], mate[field])
+        if self.cutter.mismatch_action:
+            # both independent matches at the same read position imply an
+            # overlap frame for error correction (modifiers.py:266-273)
+            both = fallback & res1["found"] & res2["found"]
+            agree = both & (res1["start2"] == res2["start2"])
+            info["frame"] |= agree
+            info["frame_rstart"] = np.where(
+                agree, res1["start2"], info["frame_rstart"]
+            )
 
         # symmetric duplication (_mirror_match, modifiers.py:228-238)
         if self.cutter.symmetric:
@@ -1965,11 +2004,21 @@ class _InsertPair:
                     dst["astop"],
                 )
                 dst["errors"] = np.where(ok, src["errors"], dst["errors"])
-        return m1, m2
+                if self.cutter.mismatch_action:
+                    # mirror-created pairs gain the overlap frame too
+                    # (modifiers.py:280-282) when no insert frame exists
+                    frame_new = ok & ~has & ~info["frame"]
+                    info["frame"] |= frame_new
+                    info["frame_rstart"] = np.where(
+                        frame_new, m1["rstart"], info["frame_rstart"]
+                    )
+        return m1, m2, info
 
     def _apply_mate(self, lane, tok, mate, ks, wl, mate_idx):
         """_trim_mate per mate: trim window + adapter statistics
-        (modifiers.py:292-314; Adapter._trimmed_back)."""
+        (modifiers.py:292-314; Adapter._trimmed_back). ``wl`` is the
+        mate's current length, which the correction's read-1 truncation
+        quirk may have shortened."""
         present = mate["present"]
         self.cutter.with_adapters[mate_idx] += int(present.sum())
         trim = present & (mate["rstart"] < wl)
@@ -1993,6 +2042,193 @@ class _InsertPair:
                     base = ""
                 adapter.adjacent_bases[base] += int(cnt)
         return np.where(trim, ks + mate["rstart"], ks + wl).astype(np.int32)
+
+    # -- overlap error correction (--correct-mismatches) ----------------------
+
+    def _correct(self, tok1, tok2, wl1, wl2, sel, info):
+        """Vectorized ErrorCorrectorMixin.correct_errors over the batch
+        (truncate_seqs=True semantics; ref ``modifiers.py:201-357``,
+        scalar twin ``modifiers/paired.py:40-191``). Corrected bytes are
+        written back into the toks' host matrices (so neighbor stats and
+        N-content filtering see them); per-mate (quals, changed) come
+        back for alt-buffer output assembly. Returns
+        (len1_eff, len2_eff, corr1 | None, corr2 | None) — len1_eff
+        carries the reference's read1 tail-loss quirk."""
+        batch = tok1.batch
+        action = self.cutter.mismatch_action
+        len_eff = np.minimum(wl1, wl2)
+
+        # correction frames: selected insert match with mismatches, the
+        # equal-rstart fallback frame, or the symmetric-mirror frame
+        do = sel["has"] & (sel["cost"] > 0)
+        frame = info["frame"]
+        r1e = np.where(frame, info["frame_rstart"],
+                       np.where(do, sel["r1e"], 0))
+        r2s = np.where(frame, len_eff - wl2, 0)
+        r2e = np.where(frame, info["frame_rstart"] - (wl2 - len_eff),
+                       np.where(do, sel["r2e"], 0))
+        do = do | frame
+        span = np.where(do, np.minimum(r1e, r2e - r2s), 0)
+        span = np.maximum(span, 0)
+        cap = int(span.max()) if batch else 0
+        if cap == 0:
+            return wl1, wl2, None, None
+
+        seq1 = tok1.seqs[:batch]
+        seq2 = tok2.seqs[:batch]
+        lane1, lane2 = self.lane1, self.lane2
+        has_quals = bool(
+            tok1.chunk.qual_len[tok1.sub].size
+            and tok1.chunk.qual_len[tok1.sub].max(initial=0) > 0
+            and tok2.chunk.qual_len[tok2.sub].max(initial=0) > 0
+        )
+        q1 = q2 = None
+        if has_quals:
+            q1 = lane1._gather(
+                tok1.chunk, tok1.sub, tok1.chunk.qual_off,
+                tok1.keep_start, tok1.width,
+            )
+            q2 = lane2._gather(
+                tok2.chunk, tok2.sub, tok2.chunk.qual_off,
+                tok2.keep_start, tok2.width,
+            )
+        elif action in ("liberal", "conservative"):
+            raise ValueError(
+                "Cannot perform quality-based error correction on reads "
+                "lacking quality information"
+            )
+
+        k = np.arange(cap, dtype=np.int64)[None, :]
+        valid = k < span[:, None]
+        rows = np.arange(batch)[:, None]
+        pos1 = np.broadcast_to(k, (batch, cap))
+        pos2 = r2e[:, None] - 1 - k
+        # scalar negative-index wrap on the (possibly truncated) mate2
+        pos2 = np.where(pos2 < 0, pos2 + len_eff[:, None], pos2)
+        pos1c = np.clip(pos1, 0, tok1.width - 1)
+        pos2c = np.clip(pos2, 0, tok2.width - 1)
+        comp = _complement_lut()
+        b1 = seq1[rows, pos1c].copy()
+        b2raw = seq2[rows, pos2c].copy()
+        b2 = comp[b2raw]
+        mismatch = valid & (b1 != b2)
+        n_byte = np.uint8(ord("N"))
+
+        def scatter(matrix, pos, mask, values):
+            # masked flat scatter: rows beyond their span carry wrapped
+            # positions that DUPLICATE real ones — an unmasked fancy
+            # assignment would let those no-op writes land after (and
+            # clobber) genuine corrections
+            hit = np.nonzero(mask)
+            matrix[hit[0], pos[hit]] = values[hit]
+
+        if action == "N":
+            scatter(seq1, pos1c, mismatch, np.broadcast_to(n_byte, b1.shape))
+            scatter(seq2, pos2c, mismatch, np.broadcast_to(n_byte, b1.shape))
+            changed1 = mismatch.sum(axis=1)
+            changed2 = changed1.copy()
+        else:
+            q1v = q1[rows, pos1c].astype(np.int32)
+            q2v = q2[rows, pos2c].astype(np.int32)
+            fix1 = mismatch & (b1 == n_byte)
+            fix2 = mismatch & ~fix1 & (b2 == n_byte)
+            rest = mismatch & ~fix1 & ~fix2
+            qdiff = q1v - q2v
+            take1 = rest & (qdiff >= self.cutter.r1r2_min_qual_difference)
+            take2 = rest & (qdiff <= self.cutter.r2r1_min_qual_difference)
+            fix2 = fix2 | take1
+            fix1 = fix1 | take2
+            scatter(seq1, pos1c, fix1, b2)
+            scatter(seq2, pos2c, fix2, comp[b1])
+            scatter(q1, pos1c, fix1, q2v.astype(np.uint8))
+            scatter(q2, pos2c, fix2, q1v.astype(np.uint8))
+            changed1 = fix1.sum(axis=1)
+            changed2 = fix2.sum(axis=1)
+            if action == "liberal":
+                deferred = rest & ~take1 & ~take2
+                def_rows = deferred.any(axis=1)
+                if def_rows.any():
+                    # tie-break by mean overlap-window quality, computed
+                    # AFTER the per-base fixes (reference evaluation order)
+                    idx1w = np.arange(tok1.width, dtype=np.int64)[None, :]
+                    w1 = idx1w < r1e[:, None]
+                    sum1 = (q1[:batch].astype(np.int64) * w1).sum(axis=1)
+                    start2 = np.where(r2s < 0, len_eff + r2s, r2s)
+                    start2 = np.maximum(start2, 0)
+                    stop2 = np.clip(r2e, 0, len_eff)
+                    idx2w = np.arange(tok2.width, dtype=np.int64)[None, :]
+                    w2 = (idx2w >= start2[:, None]) & (idx2w < stop2[:, None])
+                    sum2 = (q2[:batch].astype(np.int64) * w2).sum(axis=1)
+                    with np.errstate(divide="ignore", invalid="ignore"):
+                        mean1 = sum1 / np.maximum(r1e, 1)
+                        mean2 = sum2 / np.maximum(stop2 - start2, 1)
+                    gap = mean1 - mean2
+                    ovr2 = deferred & (gap > 1)[:, None]
+                    ovr1 = deferred & (gap < -1)[:, None]
+                    if ovr2.any():
+                        # the reference writes the ORIGINAL captured
+                        # bases, not the post-fix state (paired.py:150-153)
+                        scatter(seq2, pos2c, ovr2, comp[b1])
+                        scatter(q2, pos2c, ovr2, q1v.astype(np.uint8))
+                        changed2 = changed2 + ovr2.sum(axis=1)
+                    if ovr1.any():
+                        scatter(seq1, pos1c, ovr1, b2)
+                        scatter(q1, pos1c, ovr1, q2v.astype(np.uint8))
+                        changed1 = changed1 + ovr1.sum(axis=1)
+
+        r1_changed = changed1 > 0
+        r2_changed = changed2 > 0
+        any_changed = r1_changed | r2_changed
+        self.cutter.corrected_pairs += int(any_changed.sum())
+        self.cutter.corrected_bp[0] += int(changed1.sum())
+        self.cutter.corrected_bp[1] += int(changed2.sum())
+        # truncate_seqs quirk: a CHANGED read1 longer than read2 loses
+        # its tail (only the read2 truncation keeps it; paired.py:74-87)
+        len1_eff = np.where(r1_changed & (wl1 > wl2), wl2, wl1)
+        corr1 = (tok1, q1, r1_changed) if r1_changed.any() else None
+        corr2 = (tok2, q2, r2_changed) if r2_changed.any() else None
+        return len1_eff, wl2, corr1, corr2
+
+    @staticmethod
+    def _build_alt(corr, ks, kp):
+        """Patch-buffer output data for the corrected records: the final
+        (post-trim) seq/qual windows of every changed record, densely
+        packed ([seqs...][quals...]); -1 offsets mean 'unchanged, use the
+        chunk buffer'. The layout is :func:`_format_records`' ``alt``."""
+        tok, quals, changed = corr
+        if not changed.any():
+            return None
+        batch = tok.batch
+        final_len = (kp - ks).astype(np.int64)
+        seq_beg = np.full(batch, -1, np.int64)
+        seq_end = np.full(batch, -1, np.int64)
+        qual_beg = np.full(batch, -1, np.int64)
+        rows = np.nonzero(changed)[0]
+        lens = final_len[rows]
+        offs = np.cumsum(lens) - lens
+        total = int(lens.sum())
+        seq_beg[rows] = offs
+        seq_end[rows] = offs + lens
+        qual_beg[rows] = offs + total
+        buf = np.empty(2 * total, np.uint8)
+        # vectorized ranges-copy out of the row-major matrices
+        width = tok.width
+        flat_pos = (
+            np.repeat(rows * width, lens)
+            + (np.arange(total) - np.repeat(offs, lens))
+        )
+        buf[:total] = tok.seqs[:batch].reshape(-1)[flat_pos]
+        buf[total:] = (
+            quals[:batch].reshape(-1)[flat_pos]
+            if quals is not None
+            else 0
+        )
+        # the records keep their own name and plus lines
+        return (
+            buf, seq_beg, seq_end, qual_beg,
+            np.full(batch, -1, np.int64), np.zeros(batch, np.int32),
+            np.full(batch, -1, np.int64), np.zeros(batch, np.int32),
+        )
 
 
 def _gather_name_bytes(chunk, sub, width):
@@ -2567,6 +2803,9 @@ class TurboTrimRunner(_TurboRunnerBase):
         input1 = options.input1
         if not input1 or not isinstance(input1, str):
             return cls._decline("non-path input")
+        if options.input2:
+            # a FASTA + quality file pair (-sq) is read per record
+            return cls._decline("paired input")
         in_fmt = cls._stream_format(input1, options.format)
         if in_fmt is None:
             return cls._decline("unsupported input format")
@@ -2881,6 +3120,15 @@ class TurboPairedRunner(_TurboRunnerBase):
                 return cls._decline("quality stage without qualities")
             if stats is not None:
                 return cls._decline("--stats on quality-less input")
+        if insert_pair is not None and insert_cutter.mismatch_action:
+            # correction rewrites record bytes: paths that snapshot them
+            # from the chunk buffer cannot be served from intervals
+            if "fasta" in (in_fmt1, in_fmt2):
+                return cls._decline("insert correction without qualities")
+            if stats is not None:
+                return cls._decline("--stats with insert correction")
+            if record_handler.formatters.info_formatters:
+                return cls._decline("side files with insert correction")
         return cls(
             command_runner, record_handler, writers, lane1, lane2, stats,
             insert_pair, (in_fmt1, in_fmt2), out_fmts, overwrite,

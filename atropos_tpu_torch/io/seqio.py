@@ -1,5 +1,7 @@
-"""Sequence I/O: reading/writing FASTA and FASTQ, single, paired or
-interleaved.
+"""Sequence I/O: reading/writing FASTA and FASTQ (single, paired or
+interleaved), FASTA + quality files, SOLiD colorspace, SAM/BAM and SRA
+streams. Counterpart of ``atropos_tpu/io/seqio.py``; ``pysam`` (BAM) and
+the SRA stream are optional and imported only where they are used.
 
 Host-side record model and streaming readers. The record model keeps the
 reference's provenance semantics (``atropos/io/_seqio.pyx``): ``clipped``
@@ -18,7 +20,7 @@ byte for byte — including the reference's quirk of reporting the
 """
 import sys
 
-from atropos_tpu_torch import AtroposError, NotPortedError
+from atropos_tpu_torch import AtroposError
 from atropos_tpu_torch.io import STDOUT, xopen
 from atropos_tpu_torch.io.compression import splitext_compressed
 from atropos_tpu_torch.util import ALPHABETS, Summarizable, reverse_complement, truncate_string
@@ -185,6 +187,94 @@ class Sequence:
 
     def __ne__(self, other):
         return not self.__eq__(other)
+
+
+class ColorspaceSequence(Sequence):
+    """Colorspace read: first char is the primer base, remainder colors."""
+
+    __slots__ = ("primer",)
+
+    def __init__(
+        self,
+        name,
+        sequence,
+        qualities,
+        primer=None,
+        name2="",
+        original_length=None,
+        match=None,
+        match_info=None,
+        clipped=None,
+        insert_overlap=False,
+        merged=False,
+        corrected=0,
+        alphabet=None,
+    ):
+        if primer is None:
+            self.primer = sequence[0:1]
+            sequence = sequence[1:]
+        else:
+            self.primer = primer
+        if qualities is not None and len(sequence) != len(qualities):
+            rname = truncate_string(name)
+            raise FormatError(
+                "In read named {0!r}: length of colorspace quality "
+                "sequence ({1}) and length of read ({2}) do not match (primer "
+                "is: {3!r})".format(rname, len(qualities), len(sequence), self.primer)
+            )
+        super().__init__(
+            name,
+            sequence,
+            qualities,
+            name2,
+            original_length,
+            match,
+            match_info,
+            clipped,
+            insert_overlap,
+            merged,
+            corrected,
+            alphabet=alphabet,
+        )
+        if self.primer not in ("A", "C", "G", "T"):
+            raise FormatError(
+                "Primer base is {0!r} in read {1!r}, but it should be one of "
+                "A, C, G, T.".format(self.primer, truncate_string(name))
+            )
+
+    def __repr__(self):
+        return "<ColorspaceSequence(name={0!r}, primer={1!r}, sequence={2!r}{3})>".format(
+            truncate_string(self.name), self.primer,
+            truncate_string(self.sequence), self._qual_repr(),
+        )
+
+    def __getitem__(self, key):
+        return self.__class__(
+            self.name,
+            self.sequence[key],
+            self.qualities[key] if self.qualities is not None else None,
+            self.primer,
+            self.name2,
+            self.original_length,
+            self.match,
+            self.match_info,
+            list(self.clipped),
+            self.insert_overlap,
+            self.merged,
+            self.corrected,
+        )
+
+
+def sra_colorspace_sequence(name, sequence, qualities, name2, alphabet=None):
+    """SRA colorspace reads carry one extra leading quality value."""
+    return ColorspaceSequence(
+        name, sequence, qualities[1:], name2=name2, alphabet=alphabet
+    )
+
+
+# --------------------------------------------------------------------------
+# Readers
+# --------------------------------------------------------------------------
 
 
 class SequenceReaderBase(Summarizable):
@@ -478,6 +568,95 @@ class FastaReader(SequenceReader):
         )
 
 
+class ColorspaceFastaReader(FastaReader):
+    colorspace = True
+
+    def __init__(self, path, keep_linebreaks=False, alphabet=None):
+        super().__init__(
+            path, keep_linebreaks, sequence_class=ColorspaceSequence, alphabet=alphabet
+        )
+
+
+class ColorspaceFastqReader(FastqReader):
+    colorspace = True
+
+    def __init__(self, path, quality_base=33, alphabet=None):
+        super().__init__(
+            path, quality_base=quality_base, sequence_class=ColorspaceSequence,
+            alphabet=alphabet,
+        )
+
+
+class SRAColorspaceFastqReader(FastqReader):
+    colorspace = True
+
+    def __init__(self, path, quality_base=33, alphabet=None):
+        super().__init__(
+            path, quality_base=quality_base, sequence_class=sra_colorspace_sequence,
+            alphabet=alphabet,
+        )
+
+
+# phred values as they appear in .qual files -> phred+33 ASCII
+_QUAL_TO_ASCII = {str(q): chr(q + 33) for q in range(-5, 256 - 33)}
+
+
+class FastaQualReader(SequenceReaderBase):
+    """Paired .(CS)FASTA + .QUAL file reader."""
+
+    file_format = "FastaQual"
+    delivers_qualities = True
+    has_qualfile = True
+    colorspace = False
+    interleaved = False
+    input_read = SINGLE
+
+    def __init__(self, fastafile, qualfile, quality_base=33, sequence_class=Sequence, alphabet=None):
+        self.fastareader = FastaReader(fastafile)
+        self.qualreader = FastaReader(qualfile, keep_linebreaks=True)
+        self.quality_base = quality_base
+        self.sequence_class = sequence_class
+        self.alphabet = alphabet
+
+    @property
+    def input_names(self):
+        return ((self.fastareader.name, self.qualreader.name), None)
+
+    def __iter__(self):
+        for bases, quals in zip(self.fastareader, self.qualreader):
+            if bases.name != quals.name:
+                raise FormatError(
+                    "The read names in the FASTA and QUAL file do not match "
+                    "({0!r} != {1!r})".format(bases.name, quals.name)
+                )
+            try:
+                qualities = "".join(
+                    _QUAL_TO_ASCII[value] for value in quals.sequence.split()
+                )
+            except KeyError as err:
+                raise FormatError(
+                    "Within read named {0!r}: Found invalid quality "
+                    "value {1}".format(bases.name, err)
+                )
+            yield self.sequence_class(
+                bases.name, bases.sequence, qualities, alphabet=self.alphabet
+            )
+
+    def close(self):
+        self.fastareader.close()
+        self.qualreader.close()
+
+
+class ColorspaceFastaQualReader(FastaQualReader):
+    colorspace = True
+
+    def __init__(self, fastafile, qualfile, quality_base=33, alphabet=None):
+        super().__init__(
+            fastafile, qualfile, quality_base=quality_base,
+            sequence_class=ColorspaceSequence, alphabet=alphabet,
+        )
+
+
 def sequence_names_match(read1, read2):
     """Pair-name check ignoring a trailing 1/2 mate indicator."""
     token1 = read1.name.split(None, 1)[0]
@@ -572,6 +751,156 @@ class InterleavedSequenceReader(SequenceReaderBase):
         self.reader.close()
 
 
+class SAMReader(SequenceReaderBase):
+    """SAM/BAM reader via pysam (paired files must be name-sorted)."""
+
+    file_format = "SAM"
+    delivers_qualities = True
+    interleaved = False
+    has_qualfile = False
+    colorspace = False
+
+    def __init__(self, path, quality_base=33, sequence_class=Sequence, alphabet=None, pysam_kwargs=None):
+        self._close_on_exit = False
+        if isinstance(path, str):
+            path = xopen(path, "rb")
+            self._close_on_exit = True
+        self.name = getattr(path, "name", str(path))
+        self._file = path
+        self.quality_base = quality_base
+        self.sequence_class = sequence_class
+        self.alphabet = alphabet
+        self.pysam_kwargs = pysam_kwargs or dict(check_sq=False)
+
+    @property
+    def input_names(self):
+        return (self.name, None)
+
+    def __iter__(self):
+        try:
+            import pysam
+
+            return self._iter(
+                pysam.AlignmentFile(self._file, **self.pysam_kwargs)
+            )
+        except ImportError:
+            # fall back to a text-SAM parser with a pysam-compatible
+            # record surface (BAM still requires pysam)
+            return self._iter(_TextSamFile(self._file))
+
+    def _iter(self, sam):
+        raise NotImplementedError()
+
+    def close(self):
+        _close_owned(self)
+
+    def _as_sequence(self, read):
+        return self.sequence_class(
+            read.query_name,
+            read.query_sequence,
+            "".join(chr(33 + q) for q in read.query_qualities),
+            alphabet=self.alphabet,
+        )
+
+
+class _TextSamRecord:
+    """pysam.AlignedSegment work-alike over one text SAM line."""
+
+    __slots__ = ("query_name", "flag", "query_sequence", "query_qualities")
+
+    def __init__(self, fields):
+        self.query_name = fields[0]
+        self.flag = int(fields[1])
+        seq = fields[9]
+        self.query_sequence = None if seq == "*" else seq
+        qual = fields[10]
+        if qual == "*":
+            self.query_qualities = None
+        else:
+            self.query_qualities = [ord(ch) - 33 for ch in qual]
+
+    @property
+    def is_read1(self):
+        return bool(self.flag & 0x40)
+
+    @property
+    def is_read2(self):
+        return bool(self.flag & 0x80)
+
+
+class _TextSamFile:
+    """Text-only SAM iterator used when pysam is unavailable. Yields every
+    alignment record (like pysam's default iteration); rejects BAM."""
+
+    def __init__(self, fileobj):
+        self._file = fileobj
+
+    def __iter__(self):
+        first = True
+        for line in self._file:
+            if isinstance(line, bytes):
+                if first and line[:2] == b"\x1f\x8b" or line[:4] == b"BAM\x01":
+                    raise ImportError(
+                        "Reading BAM files requires the pysam library"
+                    )
+                line = line.decode("ascii")
+            first = False
+            if not line or line.startswith("@"):
+                continue
+            fields = line.rstrip("\n").split("\t")
+            if len(fields) < 11:
+                raise FormatError(
+                    "SAM line has {} fields; expected at least 11".format(
+                        len(fields)
+                    )
+                )
+            yield _TextSamRecord(fields)
+
+
+class SingleEndSAMReader(SAMReader):
+    input_read = SINGLE
+
+    def _iter(self, sam):
+        return map(self._as_sequence, sam)
+
+
+class Read1SingleEndSAMReader(SAMReader):
+    input_read = READ1
+
+    def _iter(self, sam):
+        return (self._as_sequence(r) for r in sam if r.is_read1)
+
+
+class Read2SingleEndSAMReader(SAMReader):
+    input_read = READ2
+
+    def _iter(self, sam):
+        return (self._as_sequence(r) for r in sam if r.is_read2)
+
+
+class PairedEndSAMReader(SAMReader):
+    input_read = PAIRED
+    interleaved = True
+
+    def _iter(self, sam):
+        for reads in zip(sam, sam):
+            if reads[0].query_name != reads[1].query_name:
+                raise AtroposError(
+                    "Consecutive reads {}, {} in paired-end SAM/BAM file do "
+                    "not have the same name; make sure your file is "
+                    "name-sorted and does not contain any "
+                    "secondary/supplementary alignments.",
+                    reads[0].query_name,
+                    reads[1].query_name,
+                )
+            if reads[0].is_read1:
+                assert reads[1].is_read2
+            else:
+                assert reads[1].is_read1
+                reads = (reads[1], reads[0])
+            yield tuple(self._as_sequence(r) for r in reads)
+
+
 # --------------------------------------------------------------------------
 # Output formats / formatters
 # --------------------------------------------------------------------------
@@ -599,12 +928,22 @@ class FastaFormat(SequenceFileFormat):
         return ">{0}\n{1}\n".format(name, sequence)
 
 
+class ColorspaceFastaFormat(FastaFormat):
+    def format(self, read):
+        return self.format_entry(read.name, read.primer + read.sequence)
+
+
 class FastqFormat(SequenceFileFormat):
     def format(self, read):
         return self.format_entry(read.name, read.sequence, read.qualities, read.name2)
 
     def format_entry(self, name, sequence, qualities, name2=""):
         return "@{0}\n{1}\n+{2}\n{3}\n".format(name, sequence, name2, qualities)
+
+
+class ColorspaceFastqFormat(FastqFormat):
+    def format(self, read):
+        return self.format_entry(read.name, read.primer + read.sequence, read.qualities)
 
 
 class SingleEndFormatter:
@@ -650,6 +989,66 @@ class PairedEndFormatter(SingleEndFormatter):
         self.read2_bp += len(read2)
 
 
+# --------------------------------------------------------------------------
+# SRA streaming (reference ``atropos/io/seqio.py:165-199,924-956``)
+# --------------------------------------------------------------------------
+
+
+class SraSequenceReader(SequenceReader):
+    """Wraps a streaming SRA reader: any iterable with a ``paired``
+    property yielding lists of (name, sequence, qualities) tuples."""
+
+    delivers_qualities = True
+    file_format = "fastq"
+
+    def __init__(self, reader, quality_base=None, sequence_class=Sequence,
+                 alphabet=None):
+        super().__init__(reader, quality_base=quality_base, alphabet=alphabet)
+        self.input_read = PAIRED if reader.paired else SINGLE
+        self.sequence_class = sequence_class
+
+    def __iter__(self):
+        if self.input_read == PAIRED:
+            return (
+                tuple(map(self._as_sequence, read[:2])) for read in self._file
+            )
+        return (self._as_sequence(read[0]) for read in self._file)
+
+    def _as_sequence(self, frag):
+        return self.sequence_class(*frag, alphabet=self.alphabet)
+
+    def close(self):
+        self._file.finish()
+
+
+class SraColorspaceSequenceReader(SraSequenceReader):
+    colorspace = True
+
+    def __init__(self, reader, quality_base=33, alphabet=None):
+        super().__init__(
+            reader, quality_base=quality_base,
+            sequence_class=ColorspaceSequence, alphabet=alphabet,
+        )
+
+
+def sra_reader(reader, quality_base=None, colorspace=False, input_read=None,
+               alphabet=None):
+    """Wrap an existing SRA streaming reader, optionally restricting a
+    paired stream to one mate."""
+    sra_class = SraColorspaceSequenceReader if colorspace else SraSequenceReader
+    wrapped = sra_class(reader, quality_base=quality_base, alphabet=alphabet)
+    if not reader.paired or input_read == PAIRED:
+        return wrapped
+    if input_read == READ1:
+        return paired_to_read1(wrapped)
+    return paired_to_read2(wrapped)
+
+
+# --------------------------------------------------------------------------
+# Factories
+# --------------------------------------------------------------------------
+
+
 def paired_to_read1(reader):
     for read1, _ in reader:
         yield read1
@@ -658,11 +1057,6 @@ def paired_to_read1(reader):
 def paired_to_read2(reader):
     for _, read2 in reader:
         yield read2
-
-
-# --------------------------------------------------------------------------
-# Factories
-# --------------------------------------------------------------------------
 
 
 def _resolve_alphabet(alphabet):
@@ -688,6 +1082,16 @@ def _detect_from_content(stream):
     return None, stream
 
 
+def _open_sam(file1, input_read, interleaved, quality_base, alphabet):
+    sam_class = {
+        READ1: Read1SingleEndSAMReader,
+        READ2: Read2SingleEndSAMReader,
+    }.get(input_read, SingleEndSAMReader)
+    if interleaved:
+        sam_class = PairedEndSAMReader
+    return sam_class(file1, quality_base=quality_base, alphabet=alphabet)
+
+
 def open_reader(
     file1=None,
     file2=None,
@@ -700,15 +1104,11 @@ def open_reader(
     alphabet=None,
 ):
     """Reader factory with format autodetection (by extension, then by
-    first content character). FASTA/FASTQ files, single, paired or
-    interleaved; FASTA+qual, SAM/BAM, SRA and colorspace inputs raise
-    :class:`~atropos_tpu_torch.NotPortedError`."""
+    first content character)."""
     if interleaved and (file2 is not None or qualfile is not None):
         raise ValueError("When interleaved is set, file2 and qualfile must be None")
     if file2 is not None and qualfile is not None:
         raise ValueError("Setting both file2 and qualfile is not supported")
-    if colorspace:
-        raise NotPortedError("colorspace input", "engine")
 
     alphabet = _resolve_alphabet(alphabet)
 
@@ -720,7 +1120,10 @@ def open_reader(
         )
 
     if qualfile is not None:
-        raise NotPortedError("FASTA + quality-file input", "engine")
+        fq_class = ColorspaceFastaQualReader if colorspace else FastaQualReader
+        return fq_class(
+            file1, qualfile, quality_base=quality_base, alphabet=alphabet
+        )
 
     if file_format is None and file1 != STDOUT:
         file_format = guess_format_from_name(file1)
@@ -731,9 +1134,13 @@ def open_reader(
 
     if file_format is not None:
         file_format = file_format.lower()
-        if file_format in ("sam", "bam", "sra-fastq"):
-            raise NotPortedError(
-                "{} input".format(file_format.upper()), "engine"
+        if file_format in ("sam", "bam"):
+            if colorspace:
+                raise ValueError(
+                    "SAM/BAM format is not currently supported for colorspace reads"
+                )
+            return _open_sam(
+                file1, input_read, interleaved, quality_base, alphabet
             )
         if interleaved:
             reader = InterleavedSequenceReader(
@@ -746,14 +1153,21 @@ def open_reader(
                 return paired_to_read2(reader)
             return reader
         if file_format == "fasta":
-            return FastaReader(file1, alphabet=alphabet)
+            fasta_class = ColorspaceFastaReader if colorspace else FastaReader
+            return fasta_class(file1, alphabet=alphabet)
         if file_format == "fastq":
-            return FastqReader(
+            fastq_class = ColorspaceFastqReader if colorspace else FastqReader
+            return fastq_class(
+                file1, quality_base=quality_base, alphabet=alphabet
+            )
+        if file_format == "sra-fastq" and colorspace:
+            return SRAColorspaceFastqReader(
                 file1, quality_base=quality_base, alphabet=alphabet
             )
 
     raise UnknownFileType(
-        "File format {0!r} is unknown (expected 'fasta' or 'fastq').".format(
+        "File format {0!r} is unknown (expected 'sra-fastq' (only for "
+        "colorspace), 'fasta', 'fastq', 'sam', or 'bam').".format(
             file_format or "<Undetected>"
         )
     )
@@ -799,8 +1213,6 @@ def create_seq_formatter(file1, file2=None, interleaved=False, **kwargs):
 
 def get_format(path, file_format=None, colorspace=False, qualities=None, line_length=None):
     """SequenceFileFormat factory."""
-    if colorspace:
-        raise NotPortedError("colorspace output", "engine")
     if file_format is None:
         file_format = guess_format_from_name(path, raise_on_failure=qualities is None)
     if file_format is None:
@@ -817,8 +1229,10 @@ def get_format(path, file_format=None, colorspace=False, qualities=None, line_le
             raise ValueError(
                 "Output format cannot be FASTQ since no quality values are available."
             )
-        return FastqFormat()
+        return ColorspaceFastqFormat() if colorspace else FastqFormat()
     if file_format == "fasta":
+        if colorspace:
+            return ColorspaceFastaFormat(line_length)
         return FastaFormat(line_length)
     raise UnknownFileType(
         "File format {0!r} is unknown (expected 'fasta' or 'fastq').".format(

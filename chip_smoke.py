@@ -72,9 +72,11 @@ object a line:
                 instructions a row, and the probe tool's run on the card
 14. ``goldens``  thirteen upstream single-end cases (the info files and the
                 demultiplexed outputs among them; the last six run through the
-                per-record pipeline) and every paired-end case of the ported
+                per-record pipeline), every paired-end case of the ported
                 slice (``mask_adapter`` through the pipeline, with both
-                aligners) on the card against ``tests/conformance``
+                aligners) and the 20 colorspace cases (``-c``: the pipeline
+                on the scalar aligner, as in the reference; no launch) on the
+                card against ``tests/conformance``
 15. ``se_engine_path``  1,000,000 reads of 150 bases (``se_side_path``'s
                 generator) through ``trim -a truseq=... -a nextera=... -a
                 umi=... -n 2 --mask-adapter -y _{name}``: the turbo runner
@@ -92,11 +94,28 @@ object a line:
                 engine path prints its wall time and rate, its launches, the
                 changes of the engine's ``BUILD_COUNTS`` and ``MATCH_COUNTS``
                 and its mode
-18. ``cpu_phase``  every ``--device cpu`` check, after the last timed card
-                phase (below): its wall time and each child's seconds. The
-                grids (3 and 4) and the goldens (14), which time nothing,
-                run beside it, after the timed phases
-19. ``kernels``  for each kernel: launches on its path (counts set to 0 just
+18. ``pe_correct_path``  ``pe_insert_path``'s pairs with
+                ``--correct-mismatches liberal``: the turbo runner corrects
+                the overlaps on the host (``diag_counts_u8``,
+                ``dp_locate_word32``); the corrected pairs and bases
+19. ``se_sam_engine_path``  500,000 unaligned SAM records (flag 4) of
+                ``se_side_path``'s reads through ``-a truseq=... -a nextera=...
+                -a umi=... -se IN.sam``: the SAM reader and the pipeline,
+                ``dp_locate_word32``
+20. ``pe_sam_engine_path``  250,000 pairs in one queryname-sorted SAM (flags
+                77 and 141) through ``--aligner adapter -l IN.sam -o -p``
+21. ``se_fastaqual_engine_path``  250,000 reads as FASTA + ``.qual`` through
+                ``-a truseq=... -q 20 -se IN.fasta -sq IN.qual``
+22. ``se_stats_serial_check``  8,192 reads with Illumina names through
+                ``--stats both:tiles -a truseq=... --times 2``: no engine, every
+                read on the scalar aligner (the reference's route), the
+                position counts on the card; cut in size for the scalar step
+23. ``cpu_phase``  every ``--device cpu`` check, after the last timed card
+                phase (below): its wall time, each check's threads and
+                each child's seconds. The grids (3 and 4) and the goldens
+                (14), which time nothing, run beside it, after the timed
+                phases
+24. ``kernels``  for each kernel: launches on its path (counts set to 0 just
                 before the path and read just after), error against the plain
                 version, time at the path's shape (``ms``: the median of
                 single launches, each between two events, the wrapper's host
@@ -115,13 +134,16 @@ object a line:
                 ``insert_kernel.WORD_OPS`` a word and
                 ``insert_kernel.DIAGONAL_OPS`` a diagonal; for
                 ``dp_locate_word32`` and ``diag_counts_u8`` also their
-                launches on the engine paths (``engine_launches``)
-20. the last line: ``{"ok": true, "device": {...}}``
+                launches on the engine paths (``engine_launches``), for
+                ``diag_counts_u8`` also on ``pe_correct_path``
+                (``correct_path_launches``)
+25. the last line: ``{"ok": true, "device": {...}}``
 
 Every path whose output the card makes also runs on ``--device cpu`` for a
 prefix of its input (``CPU_CHECK_RECORDS``: 65,536 reads of the main path
 and records of each engine path, ``(DEPTH + 2) x MAX_BATCH`` = 163,840
-reads or pairs of the other paths, all 2,048 pairs of the insert check):
+reads or pairs of the other paths, all 2,048 pairs of the insert check and
+all 8,192 reads of the ``--stats`` check):
 the CPU's outputs must be byte-identical prefixes of the card's (the side
 files and every demultiplexed file among them); for the side and engine
 paths the card also runs the prefix alone, and its statistics, summary and
@@ -129,9 +151,11 @@ report must equal the CPU's. The card phases only leave these runs behind
 (the prefix of the input, the card output's prefix, the argv); one phase
 after the last timed card phase runs them in spawned child processes, one
 a host core but the one that runs the untimed card checks beside them
-(the grids, the goldens), largest input first, each child with its share
-of the threads and each checking that it launched no kernel, so that no
-timed card run shares the host with them.
+(the grids, the goldens), less one for the second thread of the longest
+check, longest check first, each check with its threads and each child
+checking that it launched no kernel, so that no timed card run shares the
+host with them; the main process takes the checks left once its untimed
+checks are done.
 
 Any phase that fails raises: the script then exits non-zero without the
 last line. Without a usable card it exits non-zero at once.
@@ -169,6 +193,7 @@ from atropos_tpu_torch.align.insert_kernel import (
 from atropos_tpu_torch import engine
 from atropos_tpu_torch.commands import get_command
 from atropos_tpu_torch.commands import stats
+from atropos_tpu_torch.commands.trim import pipeline
 from atropos_tpu_torch.engine import turbo
 from atropos_tpu_torch.tools import dtype_probe
 from cuda_tools import sass_rows, timing
@@ -193,6 +218,13 @@ ENGINE_CPU_RECORDS = 65536  # records of each engine path run again on the CPU
 # run again on the CPU: the per-pair host steps of these configurations are
 # scalar Python, as in the reference
 INSERT_CHECK_PAIRS, INSERT_CHECK_POLY_A = 2048, 150
+SAM_READS = 500000  # unaligned SAM records of the single-end SAM path
+SAM_PAIRS = 250000  # pairs of the paired-end SAM path, in one SAM
+FASTAQUAL_READS = 250000  # reads of the FASTA + qual path
+# reads of the --stats check of a declined configuration, all run again on
+# the CPU: the pipeline collects its statistics per record and matches its
+# adapters on the scalar aligner (no engine), as the reference does
+STATS_CHECK_READS = 8192
 DEVICE = torch.device("cuda", 0)
 HBM_BYTES_PER_SECOND = 3.35e12  # H100 SXM data sheet
 # integer operations an SM can issue a clock: 4 schedulers, one warp
@@ -1426,11 +1458,19 @@ def write_side_fastq(path, rng, n_reads, read_len=150, chunk=250000):
     return np.concatenate(kinds_all), np.concatenate(offsets_all), np.concatenate(clean_all)
 
 
-def write_prefix(path, records, out_path):
-    """The first ``records`` FASTQ records of ``path`` into ``out_path``."""
+def write_prefix(path, records, out_path, lines=4):
+    """The first ``records`` records of ``path`` (``lines`` lines each: a
+    FASTQ record, a FASTA or qual record on one line, a pair of SAM lines)
+    into ``out_path``, after the SAM header lines (``@``) it starts with."""
     with open(path, "rb") as src, open(out_path, "wb") as dst:
-        for _ in range(4 * records):
-            dst.write(src.readline())
+        line = src.readline()
+        if path.endswith(".sam"):
+            while line.startswith(b"@"):
+                dst.write(line)
+                line = src.readline()
+        for _ in range(lines * records):
+            dst.write(line)
+            line = src.readline()
     return out_path
 
 
@@ -1458,13 +1498,15 @@ def run_trim_summary(argv, device):
     :func:`run_trim` does, also returning the run's summary, its mode, how
     many position counts of the statistics ran on each device type and
     the changes of the batched engine's ``BUILD_COUNTS`` and
-    ``MATCH_COUNTS``. ``run`` is the turbo runner's record, None for a
-    run of the per-record pipeline."""
+    ``MATCH_COUNTS`` and of the records the pipeline ran without an engine
+    (``per_record``). ``run`` is the turbo runner's record, None for a run
+    of the per-record pipeline."""
     check_device_phase(device)
     cuda_kernel.reset_launch_counts()
     insert_kernel.reset_launch_counts()
     stats_before = dict(stats.DEVICE_STATS_COUNTS)
     engine_before = (dict(engine.BUILD_COUNTS), dict(engine.MATCH_COUNTS))
+    per_record_before = pipeline.PER_RECORD_COUNTS["records"]
     turbo.LAST_RUN.clear()
     began = time.perf_counter()
     retcode, summary = get_command("trim").execute(argv[1:], device=device)
@@ -1482,6 +1524,7 @@ def run_trim_summary(argv, device):
                       for key in engine_before[0]},
         match_counts={key: engine.MATCH_COUNTS[key] - engine_before[1][key]
                       for key in engine_before[1]},
+        per_record=pipeline.PER_RECORD_COUNTS["records"] - per_record_before,
     )
 
 
@@ -1500,7 +1543,7 @@ def _report_sections(path):
 SUMMARY_KEYS = ("pre", "post", "trim")
 
 
-def prefix_checks(make_argv, inputs, card_outs, work, tag, run_equal=()):
+def prefix_checks(make_argv, inputs, card_outs, work, tag, run_equal=(), lines=(4,)):
     """The path's checks against ``--device cpu``: the first records of
     ``inputs`` (``CPU_CHECK_RECORDS[tag]``) run alone on the card now,
     and on the CPU in the CPU phase, whose every output must be a
@@ -1508,12 +1551,15 @@ def prefix_checks(make_argv, inputs, card_outs, work, tag, run_equal=()):
     statistics, report and summary must equal the card's prefix run's.
     ``make_argv`` (inputs, folder) -> (argv, outputs, report); the CPU's
     run must also equal the card's prefix run in the fields ``run_equal``
-    of the turbo runner's record. Returns a record of the card's prefix
+    of the turbo runner's record. ``lines``: the lines of a record of each
+    input (:func:`write_prefix`). Returns a record of the card's prefix
     run, and that run."""
     records = CPU_CHECK_RECORDS[tag]
     prefixes = [
         write_prefix(path, records,
-                     os.path.join(work, "{}_prefix.{}.fastq".format(tag, i)))
+                     os.path.join(work, "{}_prefix.{}{}".format(
+                         tag, i, os.path.splitext(path)[1])),
+                     lines[min(i, len(lines) - 1)])
         for i, path in enumerate(inputs)
     ]
     folders = {device: os.path.join(work, "{}_{}".format(tag, device))
@@ -1529,7 +1575,7 @@ def prefix_checks(make_argv, inputs, card_outs, work, tag, run_equal=()):
     cpu_argv, cpu_outs, cpu_report = make_argv(prefixes, folders["cpu"])
     defer_cpu(tag, [dict(
         argv=cpu_argv, report=cpu_report, outs=list(zip(cpu_outs, card_outs, outs)),
-        mode=card["mode"],
+        mode=card["mode"], per_record=card["per_record"],
         summary={key: _plain_json(card["summary"].get(key)) for key in SUMMARY_KEYS},
         report_sections=_report_sections(report),
         run_equal={key: card["run"][key] for key in run_equal},
@@ -1556,19 +1602,25 @@ CPU_CHECK_RECORDS = {
     "se_engine_path": ENGINE_CPU_RECORDS,
     "pe_engine_path": ENGINE_CPU_RECORDS,
     "pe_engine_insert_check": INSERT_CHECK_PAIRS,
+    "pe_correct_path": CPU_PAIRS,
+    "se_sam_engine_path": ENGINE_CPU_RECORDS,
+    "pe_sam_engine_path": ENGINE_CPU_RECORDS,
+    "se_fastaqual_engine_path": ENGINE_CPU_RECORDS,
+    "se_stats_serial_check": STATS_CHECK_READS,
 }
 #: the CPU checks the card phases left for the CPU phase
 CPU_PENDING = []
-#: set in the CPU phase's children, the only processes that run on the CPU:
-#: a card phase that ran a CPU check would share the host with its timing
+#: set while a CPU check runs (in the CPU phase's children, and in the main
+#: process once it joins them): a card phase that ran a CPU check would
+#: share the host with its timing
 _IN_CPU_CHILD = False
 #: the card phases that time nothing, and so run beside the CPU phase
 UNTIMED_PHASES = ("phase_grid", "phase_diag_grid", "phase_goldens")
 
 
 def check_device_phase(device):
-    """A ``--device cpu`` run belongs to a child of the CPU phase, never to
-    a card phase."""
+    """A ``--device cpu`` run belongs to the CPU phase (its children, and
+    the main process once it joins them), never to a card phase."""
     check((torch.device(device).type == "cpu") == _IN_CPU_CHILD,
           "a {} run in {}".format(device, "the CPU phase" if _IN_CPU_CHILD else "a card phase"))
 
@@ -1581,7 +1633,9 @@ def defer_cpu(tag, runs):
     ("turbo" unless given), ``expect`` (fields of the turbo runner's
     record), ``summary`` and ``report_sections`` (the card's prefix run's),
     ``run_equal`` (fields of the card's prefix run's record), ``whole``
-    (the card's outputs are whole, not prefixes). Each run's report goes to
+    (the card's outputs are whole, not prefixes), ``per_record`` (the
+    records the pipeline runs without an engine: 0 unless given, and
+    given only for a path that is scalar by the reference's design). Each run's report goes to
     a file of its own (``report``), as the children run side by side."""
     check(tag in CPU_CHECK_RECORDS, tag)
     check(all(job["tag"] != tag for job in CPU_PENDING), ("a second CPU check", tag))
@@ -1594,27 +1648,30 @@ def defer_cpu(tag, runs):
     CPU_PENDING.append(dict(tag=tag, records=CPU_CHECK_RECORDS[tag], runs=runs))
 
 
-def cpu_child(tag, argvs, threads):
+def cpu_child(tag, argvs, threads, per_record):
     """One path's CPU check, in a spawned child of the CPU phase with
     ``threads`` of the host's threads: each command line on ``cpu``, which
     launches no kernel (the launch counts are per process, so the child
-    checks its own; a child may take several checks one after another).
-    Returns what the parent compares."""
+    checks its own; a child may take several checks one after another),
+    matches no read per read on the engine's host path, and runs exactly
+    ``per_record`` records (one count a command line) through the pipeline
+    without an engine. Returns what the parent compares."""
     global _IN_CPU_CHILD
     _IN_CPU_CHILD = True
     torch.set_num_threads(threads)
     began = time.perf_counter()
     runs = []
-    for argv in argvs:
+    for argv, expected in zip(argvs, per_record):
         res = run_trim_summary(argv, "cpu")
         check(sum(res["counts"].values()) == 0, (tag, res["counts"]))
         check(res["stats_counts"]["cuda"] == 0, (tag, res["stats_counts"]))
         check(res["match_counts"]["scalar_reads"] == 0, (tag, res["match_counts"]))
+        check(res["per_record"] == expected, (tag, res["per_record"], expected))
         summary = res.pop("summary")
         res["summary"] = {key: _plain_json(summary.get(key)) for key in SUMMARY_KEYS}
         res["report_sections"] = _report_sections(argv[argv.index("--report-file") + 1])
         runs.append(res)
-    return dict(tag=tag, seconds=time.perf_counter() - began, runs=runs)
+    return dict(tag=tag, seconds=time.perf_counter() - began, threads=threads, runs=runs)
 
 
 def compare_cpu_run(tag, spec, res):
@@ -1654,55 +1711,143 @@ def compare_cpu_run(tag, spec, res):
     )
 
 
-def input_bytes(job):
-    """The bytes of a CPU check's input files: the measure of its work
-    that orders the checks."""
-    total = 0
-    for spec in job["runs"]:
-        argv = spec["argv"]
-        total += sum(os.path.getsize(argv[i + 1]) for i, arg in enumerate(argv)
-                     if arg in ("-se", "-pe1", "-pe2", "-l") and argv[i + 1] != "-")
-    return total
+#: host threads of the CPU phase's largest check (the others take one
+#: each); the phase runs one child fewer for each thread above one, so that
+#: no core runs two threads
+LARGEST_CHECK_THREADS = 2
+
+
+def cpu_phase_plan(n_jobs, host_cores):
+    """(children, threads of each job, longest first) of the CPU phase on a
+    host of ``host_cores``: one core stays with the untimed card checks,
+    the longest check takes ``LARGEST_CHECK_THREADS`` of the rest and
+    every other check an equal share of what is left to the other
+    children."""
+    cores = max(1, host_cores - 1)
+    extra = min(LARGEST_CHECK_THREADS, cores) - 1 if n_jobs > 1 else 0
+    children = max(1, min(n_jobs, cores - extra))
+    threads = max(1, (cores - extra) // children)
+    return children, [threads + extra] + [threads] * (n_jobs - 1)
+
+
+#: the seconds each CPU check took on the host of an NVIDIA H100 80GB HBM3
+#: at 700 W (the longest check on two threads; PERF.md section 6): the CPU
+#: phase hands the checks out longest first, so that no long check starts
+#: late
+CPU_CHECK_SECONDS = {
+    "pe_insert_wide_path": 340, "se_side_path": 293, "pe_adapter_path": 291,
+    "pe_overwrite_path": 290, "pe_side_path": 225, "pe_correct_path": 216,
+    "pe_insert_path": 197, "se_engine_path": 167, "se_sam_engine_path": 87,
+    "pe_sam_engine_path": 84, "pe_engine_path": 79, "main_path": 51,
+    "se_fastaqual_engine_path": 44, "pe_engine_insert_check": 12,
+    "se_stats_serial_check": 4,
+}
+
+
+def run_cpu_jobs(jobs, counter, results):
+    """Take the CPU phase's checks one after another from the shared
+    ``counter`` (the index of the next check in ``jobs``, each a tuple of
+    :func:`cpu_child`'s arguments) until none is left, putting (index,
+    result or the error's text) on ``results``: the loop of each child of
+    the CPU phase, and of the main process once its untimed card checks
+    are done."""
+    while True:
+        with counter.get_lock():
+            index = counter.value
+            counter.value += 1
+        if index >= len(jobs):
+            return
+        try:
+            results.put((index, cpu_child(*jobs[index])))
+        except Exception:  # the parent raises it
+            import traceback
+
+            results.put((index, {"error": traceback.format_exc()}))
 
 
 def start_cpu_phase():
     """Start every ``--device cpu`` check the card phases left, after the
     last timed card phase so that none shares the host with a timing: in
     spawned child processes, one a host core but the one that runs the
-    untimed card checks (the grids, the goldens) meanwhile, each child with
-    its share of the threads, and the checks handed out largest input first
-    (a child takes the next check when it is done with one).
-    :func:`finish_cpu_phase` waits for them and makes the comparisons each
-    path made when its check ran inside its phase, on the same records."""
-    jobs = sorted(CPU_PENDING, key=input_bytes, reverse=True)
+    untimed card checks (the grids, the goldens) meanwhile, less one for
+    each extra thread of the largest check (:func:`cpu_phase_plan`). The
+    checks are handed out longest first (``CPU_CHECK_SECONDS``): a child
+    takes the next check when it is done with one, and sets its threads
+    to that check's; the main process joins them once its untimed checks
+    are done (:func:`finish_cpu_phase`), which then makes the comparisons
+    each path made when its check ran inside its phase, on the same
+    records."""
+    jobs = sorted(CPU_PENDING, key=lambda job: CPU_CHECK_SECONDS.get(job["tag"], 0),
+                  reverse=True)
     check(sorted(job["tag"] for job in jobs) == sorted(CPU_CHECK_RECORDS),
           ("CPU checks left by the card phases", [job["tag"] for job in jobs]))
-    cores = max(1, (os.cpu_count() or 1) - 1)
-    children = min(len(jobs), cores)
-    threads = max(1, cores // children)
+    children, threads = cpu_phase_plan(len(jobs), os.cpu_count() or 1)
+    args = [
+        (job["tag"], [spec["argv"] for spec in job["runs"]], job_threads,
+         [spec.get("per_record", 0) for spec in job["runs"]])
+        for job, job_threads in zip(jobs, threads)
+    ]
+    context = multiprocessing.get_context("spawn")
+    counter, results = context.Value("i", 0), context.Queue()
     began = time.perf_counter()
-    pool = multiprocessing.get_context("spawn").Pool(children)
-    pending = pool.starmap_async(cpu_child, [
-        (job["tag"], [spec["argv"] for spec in job["runs"]], threads) for job in jobs
-    ], chunksize=1)
-    return dict(jobs=jobs, pool=pool, pending=pending, began=began, children=children,
-                threads=threads)
+    processes = [context.Process(target=run_cpu_jobs, args=(args, counter, results))
+                 for _ in range(children)]
+    for process in processes:
+        process.start()
+    return dict(jobs=jobs, args=args, counter=counter, results=results,
+                processes=processes, began=began, children=children,
+                threads=dict(zip((job["tag"] for job in jobs), threads)))
 
 
 def stop_cpu_phase(cpu):
     """Stop the CPU phase's children, whether or not they finished."""
-    cpu["pool"].terminate()
-    cpu["pool"].join()
+    for process in cpu["processes"]:
+        process.terminate()
+    for process in cpu["processes"]:
+        process.join()
+
+
+def _cpu_results(cpu):
+    """The results of every check of the CPU phase, in the order of its
+    jobs: the main process runs what the children have not taken yet, then
+    waits for the children's."""
+    import queue
+
+    global _IN_CPU_CHILD
+    was_child, main_threads = _IN_CPU_CHILD, torch.get_num_threads()
+    mine = queue.Queue()
+    try:
+        run_cpu_jobs(cpu["args"], cpu["counter"], mine)
+    finally:
+        _IN_CPU_CHILD = was_child
+        torch.set_num_threads(main_threads)
+    got = {}
+    while not mine.empty():
+        index, result = mine.get()
+        got[index] = dict(result, process="main")
+    while len(got) < len(cpu["jobs"]):
+        try:
+            index, result = cpu["results"].get(timeout=5)
+        except queue.Empty:
+            check(any(process.is_alive() for process in cpu["processes"]),
+                  "a child of the CPU phase ended without its results")
+            continue
+        got[index] = dict(result, process="child")
+    for process in cpu["processes"]:
+        process.join()
+    errors = [result["error"] for result in got.values() if "error" in result]
+    check(not errors, "\n".join(errors))
+    return [got[index] for index in range(len(cpu["jobs"]))]
 
 
 def finish_cpu_phase(cpu):
-    """Wait for the CPU phase's children, compare, and print the phase's
-    line: its wall time and each child's seconds. Returns the wall time."""
+    """Join the CPU phase's children (see :func:`_cpu_results`), compare,
+    and print the phase's line: its wall time, each check's threads and
+    seconds and the checks the main process ran. Returns the wall time."""
     try:
-        results = cpu["pending"].get()
+        results = _cpu_results(cpu)
     finally:
-        cpu["pool"].close()
-        cpu["pool"].join()
+        stop_cpu_phase(cpu)
     wall = time.perf_counter() - cpu["began"]
     checks = {}
     for job, result in zip(cpu["jobs"], results):
@@ -1711,10 +1856,15 @@ def finish_cpu_phase(cpu):
                 for spec, res in zip(job["runs"], result["runs"])]
         checks[job["tag"]] = dict(records=job["records"], runs=runs)
     CPU_PENDING.clear()
+    check(all(result["threads"] == cpu["threads"][result["tag"]] for result in results),
+          "a CPU check ran with other threads than planned")
     emit({"cpu_phase": {
-        "seconds": wall, "children": cpu["children"], "threads_per_child": cpu["threads"],
+        "seconds": wall, "children": cpu["children"],
         "order": [job["tag"] for job in cpu["jobs"]],
+        "threads": cpu["threads"],
         "child_seconds": {result["tag"]: result["seconds"] for result in results},
+        "run_by_the_main_process": [result["tag"] for result in results
+                                    if result["process"] == "main"],
         "checks": checks,
     }})
     return wall
@@ -2004,14 +2154,13 @@ def phase_se_engine(work, seed, n_reads):
     check(unmasked == 0, "{} reads with a clean TruSeq copy not masked from its offset".format(
         unmasked))
     prefix, _ = prefix_checks(make_argv, [fastq], outs, work, "se_engine_path")
-    os.remove(fastq)
     return dict(
         argv="trim -a truseq=... -a nextera=... -a umi=... -n 2 --mask-adapter -y _{name} "
              "-se IN -o OUT",
         read_length=150, make_input_seconds=made, masked_copies_checked=int(sure.sum()),
         reads_masked=int((seqs == ord("N")).any(axis=1).sum()), prefix_check=prefix,
         **record,
-    )
+    ), (fastq, kinds, offsets, clean)
 
 
 def phase_pe_engine(work, seed, n_pairs):
@@ -2051,15 +2200,13 @@ def phase_pe_engine(work, seed, n_pairs):
     check(share > 0.97, ("read-through pairs cut at their insert", share))
     check(bool(np.all(len1 <= 140) and np.all(len2 <= 140)), "Swift's cuts missing")
     prefix, _ = prefix_checks(make_argv, inputs, outs, work, "pe_engine_path")
-    for path in inputs:
-        os.remove(path)
     return dict(
         argv="trim --aligner adapter -a ad1=TRUSEQ -A ad2=TRUSEQ2 --bisulfite swift "
              "-pe1 -pe2 -o -p",
         read_length=150, insert_mean=220, insert_sd=70, make_input_seconds=made,
         read_through_pairs=int(through.sum()), cut_at_insert_share=share,
         prefix_check=prefix, **record,
-    )
+    ), (inputs, inserts)
 
 
 def phase_pe_engine_insert_check(work, seed):
@@ -2131,6 +2278,308 @@ def phase_pe_engine_insert_check(work, seed):
               "trim --aligner adapter -a ad1=TRUSEQ -A ad2=TRUSEQ2 --merge-overlapping "
               "--merged-output MERGED"],
         pairs=INSERT_CHECK_PAIRS, near_poly_a_pairs=INSERT_CHECK_POLY_A, runs=records,
+    )
+
+
+# -- the inputs the turbo runner reads no chunk of: SAM, FASTA + qual, --stats --
+
+
+def fastq_to_sam(fastqs, sam, records):
+    """The first ``records`` records of ``fastqs`` as unaligned SAM records,
+    as ``samtools view`` prints an unaligned BAM: one FASTQ, flag 4; two
+    (the mates of pairs), one queryname-sorted file with flags 77 and 141
+    and the names without their /1 and /2."""
+    handles = [open(path, "rb") for path in fastqs]
+    flags = (b"4",) if len(fastqs) == 1 else (b"77", b"141")
+    cut = 0 if len(fastqs) == 1 else 2
+    try:
+        with open(sam, "wb") as out:
+            out.write(b"@HD\tVN:1.6\tSO:queryname\n@PG\tID:chip_smoke\n")
+            left = records
+            while left:
+                lines = []
+                for _ in range(min(50000, left)):
+                    mates = [[h.readline() for _ in range(4)] for h in handles]
+                    check(bool(mates[0][0]), ("fewer records than", records, fastqs))
+                    left -= 1
+                    for flag, (name, seq, _, qual) in zip(flags, mates):
+                        lines.append(b"\t".join((
+                            name[1 : len(name) - 1 - cut], flag, b"*", b"0", b"0", b"*",
+                            b"*", b"0", b"0", seq[:-1], qual[:-1],
+                        )))
+                out.write(b"\n".join(lines) + b"\n")
+    finally:
+        for handle in handles:
+            handle.close()
+    return sam
+
+
+#: a Phred value as a .qual file spells it
+QUAL_TEXT = [str(value - 33).encode() for value in range(256)]
+
+
+def fastq_to_fasta_qual(fastq, fasta, qual, records):
+    """The first ``records`` records of ``fastq`` as a FASTA and a ``.qual``
+    file of space-separated Phred values, one line a record each, as 454
+    and Ion Torrent runs were kept."""
+    with open(fastq, "rb") as src, open(fasta, "wb") as fa, open(qual, "wb") as qu:
+        for _ in range(records):
+            name = src.readline()
+            check(bool(name), ("fewer records than", records, fastq))
+            seq, _, values = src.readline(), src.readline(), src.readline()
+            header = b">" + name[1:]
+            fa.write(header + seq)
+            qu.write(header + b" ".join([QUAL_TEXT[v] for v in values[:-1]]) + b"\n")
+    return fasta, qual
+
+
+def serial_record(res, n_records, unit, per_record=False):
+    """:func:`engine_record` for a path of the per-record pipeline; with
+    ``per_record`` the path is scalar by the reference's design: no engine
+    is built, and every record runs through the pipeline without one."""
+    if not per_record:
+        record = engine_record(res, n_records, unit)
+        check(res["per_record"] == 0, res["per_record"])
+        return record
+    check(res["mode"] == "serial", res["mode"])
+    check(res["build_counts"] == {"engine": 0, "fallback": 0}, res["build_counts"])
+    check(res["per_record"] == n_records > 0, (res["per_record"], n_records))
+    return {
+        "seconds": res["seconds"], unit: n_records,
+        unit + "_per_second": n_records / res["seconds"], "launches": res["counts"],
+        "mode": res["mode"], "build_counts": res["build_counts"],
+        "per_record": res["per_record"],
+    }
+
+
+def phase_se_sam_engine(work, source, n_reads):
+    """An unaligned BAM of a multiplexed library, viewed as SAM (flag 4):
+    the first ``n_reads`` reads of ``se_engine_path``'s input (``source``:
+    the FASTQ and its reads' adapter, offset and clean flag), trimmed of
+    the three adapters. The turbo runner reads no SAM, so the per-record
+    pipeline runs it, the SAM text reader in front and the batched engine
+    matching every adapter on the card (``dp_locate_word32``). Every read
+    with a clean TruSeq copy of at least 20 bases inside it is cut at the
+    copy's offset."""
+    fastq, kinds, offsets, clean = source
+    kinds, offsets, clean = kinds[:n_reads], offsets[:n_reads], clean[:n_reads]
+    sam = os.path.join(work, "reads.sam")
+    began = time.perf_counter()
+    fastq_to_sam([fastq], sam, n_reads)
+    made = time.perf_counter() - began
+
+    def make_argv(inputs, folder):
+        out = os.path.join(folder, "trimmed.fastq")
+        report = os.path.join(folder, "report.txt")
+        argv = ["trim"]
+        for name, seq in SIDE_ADAPTERS:
+            argv += ["-a", "{}={}".format(name, seq)]
+        argv += ["-se", inputs[0], "-o", out,
+                 "--quiet", "--no-cache-adapters", "--report-file", report]
+        return argv, [out], report
+
+    folder = os.path.join(work, "se_sam_card")
+    os.makedirs(folder)
+    argv, outs, _ = make_argv([sam], folder)
+    with _HostCalls(ENGINE_SPLIT) as calls:
+        res = run_trim_summary(argv, "cuda")
+    record = serial_record(res, n_reads, "reads")
+    record["split"] = engine_split(calls, res["seconds"])
+    counts = res["counts"]
+    check(counts["dp_locate_word32"] > 0 and counts["dp_locate_wide"] == 0, counts)
+    lengths = output_lengths(outs[0])
+    check(lengths.shape[0] == n_reads, "reads in != reads out")
+    sure = (kinds == 0) & clean & (offsets <= 150 - 20)
+    share = float((lengths[sure] == offsets[sure]).mean())
+    check(int(sure.sum()) > n_reads // 8 and share > 0.97, ("cut at the TruSeq copy", share))
+    prefix, _ = prefix_checks(make_argv, [sam], outs, work, "se_sam_engine_path", lines=(1,))
+    os.remove(sam)
+    return dict(
+        argv="trim -a truseq=... -a nextera=... -a umi=... -se IN.sam -o OUT",
+        read_length=150, make_input_seconds=made, cut_at_copy_share=share,
+        prefix_check=prefix, **record,
+    )
+
+
+def phase_pe_sam_engine(work, source, n_pairs):
+    """The first ``n_pairs`` pairs of ``pe_engine_path``'s input
+    (``source``: both FASTQs and the inserts) in one queryname-sorted SAM
+    (flags 77 and 141), read as interleaved pairs (``-l``) through the SAM
+    reader's paired form, with the adapter aligner: the per-record
+    pipeline, each mate's adapter on the card (``dp_locate_word32``);
+    read-through pairs are cut at their insert."""
+    mates, inserts = source
+    inserts = inserts[:n_pairs]
+    sam = os.path.join(work, "pairs.sam")
+    began = time.perf_counter()
+    fastq_to_sam(mates, sam, n_pairs)
+    made = time.perf_counter() - began
+
+    def make_argv(inputs, folder):
+        outs = [os.path.join(folder, "sam_pe.{}.fastq".format(i)) for i in (1, 2)]
+        report = os.path.join(folder, "report.txt")
+        argv = ["trim", "--aligner", "adapter", "-a", "ad1=" + TRUSEQ, "-A", "ad2=" + TRUSEQ2,
+                "-l", inputs[0], "-o", outs[0], "-p", outs[1],
+                "--quiet", "--no-cache-adapters", "--report-file", report]
+        return argv, outs, report
+
+    folder = os.path.join(work, "pe_sam_card")
+    os.makedirs(folder)
+    argv, outs, _ = make_argv([sam], folder)
+    with _HostCalls(ENGINE_SPLIT) as calls:
+        res = run_trim_summary(argv, "cuda")
+    record = serial_record(res, n_pairs, "pairs")
+    record["split"] = engine_split(calls, res["seconds"])
+    counts = res["counts"]
+    check(counts["dp_locate_word32"] > 0 and counts["diag_counts_u8"] == 0, counts)
+    len1, len2 = output_lengths(outs[0]), output_lengths(outs[1])
+    check(len1.shape[0] == len2.shape[0] == n_pairs, "pairs in != pairs out")
+    through = (inserts >= 20) & (inserts <= 140)
+    share = float(((len1[through] == inserts[through])
+                   & (len2[through] == inserts[through])).mean())
+    check(share > 0.97, ("read-through pairs cut at their insert", share))
+    prefix, _ = prefix_checks(make_argv, [sam], outs, work, "pe_sam_engine_path", lines=(2,))
+    os.remove(sam)
+    return dict(
+        argv="trim --aligner adapter -a ad1=TRUSEQ -A ad2=TRUSEQ2 -l IN.sam -o -p",
+        read_length=150, insert_mean=220, insert_sd=70, make_input_seconds=made,
+        read_through_pairs=int(through.sum()), cut_at_insert_share=share,
+        prefix_check=prefix, **record,
+    )
+
+
+def phase_se_fastaqual_engine(work, source, n_reads):
+    """The first ``n_reads`` reads of ``se_engine_path``'s input
+    (``source``, as :func:`phase_se_sam_engine` takes it) kept as FASTA and
+    ``.qual`` (``-se IN.fasta -sq IN.qual``), quality-trimmed and trimmed of
+    the TruSeq adapter: the turbo runner reads no quality file, so the
+    per-record pipeline runs it, ``dp_locate_word32`` matching the adapter
+    on the card. Every read with a clean TruSeq copy is cut at or before
+    the copy's offset."""
+    fastq, kinds, offsets, clean = source
+    clean = clean[:n_reads] & (kinds[:n_reads] == 0)
+    starts = offsets[:n_reads]
+    fasta, qual = os.path.join(work, "reads.fasta"), os.path.join(work, "reads.qual")
+    began = time.perf_counter()
+    fastq_to_fasta_qual(fastq, fasta, qual, n_reads)
+    made = time.perf_counter() - began
+
+    def make_argv(inputs, folder):
+        out = os.path.join(folder, "trimmed.fastq")
+        report = os.path.join(folder, "report.txt")
+        argv = ["trim", "-a", "truseq=" + TRUSEQ, "-q", "20", "-se", inputs[0],
+                "-sq", inputs[1], "-o", out,
+                "--quiet", "--no-cache-adapters", "--report-file", report]
+        return argv, [out], report
+
+    folder = os.path.join(work, "se_fastaqual_card")
+    os.makedirs(folder)
+    argv, outs, _ = make_argv([fasta, qual], folder)
+    with _HostCalls(ENGINE_SPLIT) as calls:
+        res = run_trim_summary(argv, "cuda")
+    record = serial_record(res, n_reads, "reads")
+    record["split"] = engine_split(calls, res["seconds"])
+    counts = res["counts"]
+    check(counts["dp_locate_word32"] > 0 and counts["dp_locate_wide"] == 0, counts)
+    lengths = output_lengths(outs[0])
+    check(lengths.shape[0] == n_reads, "reads in != reads out")
+    sure = clean & (starts <= 150 - 20)
+    share = float((lengths[sure] <= starts[sure]).mean())
+    check(int(sure.sum()) > n_reads // 8 and share > 0.97, ("cut at the TruSeq copy", share))
+    prefix, _ = prefix_checks(make_argv, [fasta, qual], outs, work,
+                              "se_fastaqual_engine_path", lines=(2,))
+    for path in (fasta, qual):
+        os.remove(path)
+    return dict(
+        argv="trim -a truseq=TRUSEQ -q 20 -se IN.fasta -sq IN.qual -o OUT",
+        read_length=150, make_input_seconds=made, cut_at_copy_share=share,
+        prefix_check=prefix, **record,
+    )
+
+
+def write_tiled_fastq(path, rng, n_reads, tiles=12):
+    """``write_truseq_fastq``'s reads with Illumina names whose fifth field
+    is one of ``tiles`` tiles."""
+    plain = path + ".plain"
+    write_truseq_fastq(plain, rng, n_reads)
+    tile = 1101 + rng.integers(0, tiles, n_reads)
+    with open(plain, "rb") as src, open(path, "wb") as out:
+        for i in range(n_reads):
+            src.readline()
+            name = "@A00123:8:HXXXXDSXX:1:{}:{}:{}\n".format(tile[i], 1000 + i, 2000 + i)
+            out.write(name.encode() + src.readline() + src.readline() + src.readline())
+    os.remove(plain)
+    return path
+
+
+def phase_se_stats_serial_check(work, seed):
+    """``--stats both:tiles`` on a configuration the turbo runner declines
+    (``--times 2``): the reference collects these statistics per record,
+    and builds no engine under them, so every record runs through the
+    pipeline on the scalar aligner, as in the reference; the position
+    counts of the statistics run on the card, one call a table and batch.
+    Cut to ``STATS_CHECK_READS`` reads because of the scalar step; every
+    read runs again on the CPU, the output, summary and report compared
+    whole."""
+    rng = np.random.default_rng([seed, 21])
+    fastq = write_tiled_fastq(os.path.join(work, "tiled.fastq"), rng, STATS_CHECK_READS)
+    folder = os.path.join(work, "se_stats_card")
+    os.makedirs(folder)
+    out = os.path.join(folder, "trimmed.fastq")
+    report = os.path.join(folder, "report.txt")
+    argv = ["trim", "--stats", "both:tiles", "-a", "truseq=" + TRUSEQ, "--times", "2",
+            "-se", fastq, "-o", out, "--quiet", "--no-cache-adapters", "--report-file", report]
+    res = run_trim_summary(argv, "cuda")
+    record = serial_record(res, STATS_CHECK_READS, "reads", per_record=True)
+    check(sum(res["counts"].values()) == 0, res["counts"])
+    batches = -(-STATS_CHECK_READS // 1000)
+    check(0 < res["stats_counts"]["cuda"] <= batches * 2 * 3 * 13, res["stats_counts"])
+    check(res["stats_counts"]["cpu"] == 0, res["stats_counts"])
+    (source,) = res["summary"]["pre"].values()
+    tiles = source["read1"]["tile_sequence_qualities"]["rows"]
+    check(len(tiles) == 12, ("tiles", len(tiles)))
+    record["stats_counts"] = res["stats_counts"]
+    cpu_out = out + ".cpu"
+    cpu_argv = [cpu_out if arg == out else arg for arg in argv]
+    defer_cpu("se_stats_serial_check", [dict(
+        argv=cpu_argv, outs=[(cpu_out, out, None)], mode="serial", whole=True,
+        per_record=STATS_CHECK_READS,
+        summary={key: _plain_json(res["summary"].get(key)) for key in SUMMARY_KEYS},
+        report_sections=_report_sections(report),
+    )])
+    return dict(
+        argv="trim --stats both:tiles -a truseq=TRUSEQ --times 2 -se IN -o OUT",
+        read_length=150, tiles=len(tiles), **record,
+    )
+
+
+def phase_pe_correct(work, inputs, n_pairs):
+    """``pe_insert_path``'s pairs with ``--correct-mismatches liberal``:
+    the turbo runner corrects each batch's overlaps on the host from the
+    insert candidates of ``diag_counts_u8`` (the pairs' 1 % substitutions
+    on both mates give it mismatches to correct) and patches the corrected
+    records into its output; ``dp_locate_word32`` serves each mate's
+    fallback adapter match."""
+    outs = [os.path.join(work, "corrected.{}.fastq".format(i)) for i in (1, 2)]
+    argv = pe_argv("insert", *inputs, *outs, work, report="report_correct.txt")
+    argv += ["--correct-mismatches", "liberal"]
+    res = run_trim_summary(argv, "cuda")
+    seconds, counts, run = res["seconds"], res["counts"], res["run"]
+    check(res["mode"] == "turbo" and run["device"].startswith("cuda"), res["mode"])
+    check(run["aligner"] == "insert" and run["pairs"] == n_pairs, run)
+    check(counts["diag_counts_u8"] == run["batches"] > 0, (counts, run))
+    check(counts["dp_locate_word32"] == run["batches"] * run["device_aligners"], counts)
+    (corrector,) = [entry for entry in res["summary"]["trim"]["modifiers"].values()
+                    if "records_corrected" in entry]
+    corrected = (corrector["records_corrected"], list(corrector["bp_corrected"]))
+    check(corrected[0] > n_pairs // 100 and sum(corrected[1]) > 0, corrected)
+    defer_pair_check("pe_correct_path", argv, outs, run, work)
+    return dict(
+        argv="trim --aligner insert -a TRUSEQ -A TRUSEQ2 --correct-mismatches liberal "
+             "-pe1 -pe2 -o -p",
+        pairs=n_pairs, seconds=seconds, pairs_per_second=n_pairs / seconds,
+        batches=run["batches"], launches=counts, corrected_pairs=corrected[0],
+        corrected_bp=corrected[1], split_seconds=split_seconds(run),
     )
 
 
@@ -2342,12 +2791,16 @@ SERIAL_GOLDENS = 6
 
 
 def phase_goldens(work):
-    """The single-end cases above, and every paired-end case of the ported
+    """The single-end cases above, every paired-end case of the ported
     slice (the table of ``tests/test_torch_goldens_pe.py``, both aligners,
-    and interleaved input and output), on the card."""
+    and interleaved input and output), and the 20 colorspace cases (the six
+    of ``tests/test_torch_goldens.py`` and the 14 of
+    ``tests/test_torch_colorspace.py``, which the pipeline runs per record
+    on the scalar aligner and which launch no kernel), on the card."""
     import pathlib
 
     sys.path.insert(0, ROOT)
+    from tests import test_torch_colorspace, test_torch_goldens
     from tests.test_torch_goldens_pe import PORTED, SIDE_OUTPUTS, _argv
     from tests.test_torch_goldens_pe import SERIAL as PE_SERIAL
 
@@ -2378,14 +2831,37 @@ def phase_goldens(work):
             "--aligner", aligner, "-l", os.path.join(conformance, "data", "interleaved.fastq"),
             "-L", out,
         ], [(out, "interleaved.fastq")], "turbo"))
+    colorspace = []  # the same, for the colorspace cases
+    for name, params, expected, inpath in test_torch_goldens.CASES:
+        if name in test_torch_goldens.COLORSPACE:
+            case_dir = pathlib.Path(work) / ("cs_" + name)
+            case_dir.mkdir()
+            argv, out = test_torch_goldens._argv(params, expected, inpath, case_dir)
+            side = test_torch_goldens.SIDE_OUTPUTS.get(name, ())
+            colorspace.append((["trim"] + argv, [(out, expected)] + [
+                (str(case_dir / written), golden) for written, golden in side
+            ], "serial"))
+    for name, params, expected, inpath, qualfile in test_torch_colorspace.CASES:
+        case_dir = os.path.join(work, "cs_" + name)
+        os.makedirs(case_dir)
+        argv, out, _ = test_torch_colorspace.case_argv(
+            params, expected, inpath, qualfile, case_dir)
+        colorspace.append((["trim"] + argv, [(out, expected)], "serial"))
+    check(len(colorspace) == 20, len(colorspace))
     modes = {}
-    for argv, outputs, mode in runs:
+    for argv, outputs, mode in runs + colorspace:
         argv = argv + ["--quiet", "--no-cache-adapters",
                        "--report-file", os.path.join(work, "report3.txt")]
         res = run_trim_summary(argv, "cuda")
         check(res["mode"] == mode, (res["mode"], argv))
         modes[mode] = modes.get(mode, 0) + 1
-        launches += sum(res["counts"].values())
+        if "-c" in argv:
+            # no engine, no kernel: every record on the scalar aligner
+            check(sum(res["counts"].values()) == 0 and res["per_record"] > 0,
+                  (res["counts"], res["per_record"], argv))
+            check(res["build_counts"] == {"engine": 0, "fallback": 1}, res["build_counts"])
+        else:
+            launches += sum(res["counts"].values())
         for path, golden in outputs:
             with open(path, "rb") as got, open(
                 os.path.join(conformance, "expected", golden), "rb"
@@ -2395,7 +2871,9 @@ def phase_goldens(work):
     check(launches >= len(runs), 'launches >= len(runs)')
     emit({"goldens": {"single_end_cases": len(GOLDENS),
                       "paired_end_cases": len(runs) - len(GOLDENS),
-                      "identical": len(runs), "launches": launches, "modes": modes}})
+                      "colorspace_cases": len(colorspace),
+                      "identical": len(runs) + len(colorspace), "launches": launches,
+                      "colorspace_launches": 0, "modes": modes}})
 
 
 # -- main --------------------------------------------------------------------------
@@ -2463,6 +2941,10 @@ def main():
         u8_time = time_diag(diag_counts_u8, *u8_inputs)
         emit({"pe_adapter_path": phase_pe_adapter(work, inputs, PAIRS)})
         emit({"pe_side_path": phase_pe_side(work, inputs, PAIRS)})
+        mark("turbo paths, first part")
+        pe_correct = phase_pe_correct(work, inputs, PAIRS)
+        emit({"pe_correct_path": pe_correct})
+        mark("pe_correct_path")
         for path in inputs:
             os.remove(path)
         emit({"pe_overwrite_path": phase_pe_overwrite(work, args.seed, PAIRS)})
@@ -2480,24 +2962,38 @@ def main():
         for path in wide_inputs:
             os.remove(path)
         emit({"se_side_path": phase_se_side(work, args.seed, SIDE_READS)})
-        mark("turbo paths")
+        mark("turbo paths, second part")
         probe_err, probe_launches, probe_times = phase_dtype_probe(args.seed)
         global_column = phase_global_column(args.seed)
         mark("dtype probe and global column")
 
         # the configurations the turbo runner declines: the per-record
         # pipeline, its batched engine on the card
-        se_engine = phase_se_engine(work, args.seed, ENGINE_READS)
+        se_engine, se_source = phase_se_engine(work, args.seed, ENGINE_READS)
         emit({"se_engine_path": se_engine})
-        pe_engine = phase_pe_engine(work, args.seed, ENGINE_PAIRS)
+        pe_engine, pe_source = phase_pe_engine(work, args.seed, ENGINE_PAIRS)
         emit({"pe_engine_path": pe_engine})
         insert_check = phase_pe_engine_insert_check(work, args.seed)
         emit({"pe_engine_insert_check": insert_check})
         mark("engine paths")
+        # the inputs the turbo runner reads no chunk of: SAM (single-end and
+        # paired) and FASTA + qual, made of the engine paths' reads, and
+        # per-record --stats
+        se_sam = phase_se_sam_engine(work, se_source, SAM_READS)
+        emit({"se_sam_engine_path": se_sam})
+        pe_sam = phase_pe_sam_engine(work, pe_source, SAM_PAIRS)
+        emit({"pe_sam_engine_path": pe_sam})
+        fastaqual = phase_se_fastaqual_engine(work, se_source, FASTAQUAL_READS)
+        emit({"se_fastaqual_engine_path": fastaqual})
+        for path in [se_source[0]] + list(pe_source[0]):
+            os.remove(path)
+        emit({"se_stats_serial_check": phase_se_stats_serial_check(work, args.seed)})
+        mark("SAM, FASTA + qual and --stats paths")
         engine_launches = {
             "dp_locate_word32": sum(
                 record["launches"]["dp_locate_word32"]
-                for record in (se_engine, pe_engine, insert_check["runs"]["merge"])),
+                for record in (se_engine, pe_engine, insert_check["runs"]["merge"],
+                               se_sam, pe_sam, fastaqual)),
             "diag_counts_u8": insert_check["runs"]["insert"]["launches"]["diag_counts_u8"],
         }
 
@@ -2541,9 +3037,14 @@ def main():
         }
         if kernel.name in engine_launches:
             # launches on the engine paths (se_engine_path, pe_engine_path,
-            # the insert check's -R run; its insert run for the counts)
+            # the insert check's -R run, the SAM and FASTA + qual paths; the
+            # insert check's insert run for the counts)
             check(engine_launches[kernel.name] > 0, (kernel.name, engine_launches))
             entry["engine_launches"] = engine_launches[kernel.name]
+        if kernel is diag_counts_u8:
+            # launches on the insert path with --correct-mismatches
+            entry["correct_path_launches"] = pe_correct["launches"]["diag_counts_u8"]
+            check(entry["correct_path_launches"] > 0, entry["correct_path_launches"])
         entry.update(measured)
         kernels.append(entry)
     print(card, flush=True)

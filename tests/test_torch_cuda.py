@@ -671,3 +671,134 @@ def test_engine_batch_of_64_on_the_card(card, tmp_path):
         ]
     assert found["cuda"] == found["cpu"]
     assert sum(bool(matches) for matches, _ in found["cuda"]) > 10
+
+
+def _sam_and_fastaqual(tmp_path, fastq):
+    """The reads of ``fastq`` as unaligned SAM (flag 4), as pairs of
+    themselves in one SAM (flags 77 and 141), and as FASTA + qual."""
+    with open(fastq) as handle:
+        lines = [line.rstrip("\n") for line in handle]
+    records = [lines[i : i + 4] for i in range(0, len(lines), 4)]
+    paths = {key: str(tmp_path / name) for key, name in (
+        ("se", "in.sam"), ("pe", "pairs.sam"), ("fasta", "in.fasta"), ("qual", "in.qual"))}
+    with open(paths["se"], "w") as se, open(paths["pe"], "w") as pe, \
+            open(paths["fasta"], "w") as fa, open(paths["qual"], "w") as qu:
+        for name, seq, _, qual in records:
+            fields = ["*", "0", "0", "*", "*", "0", "0", seq, qual]
+            se.write("\t".join([name[1:], "4"] + fields) + "\n")
+            for flag in ("77", "141"):
+                pe.write("\t".join([name[1:], flag] + fields) + "\n")
+            fa.write(">{}\n{}\n".format(name[1:], seq))
+            qu.write(">{}\n{}\n".format(name[1:], " ".join(str(ord(q) - 33) for q in qual)))
+    return paths
+
+
+@pytest.mark.parametrize("form", ["se", "pe", "fastaqual"])
+def test_sam_and_fastaqual_engine_on_the_card_equals_the_cpu(card, tmp_path, form):
+    """SAM (single-end and paired) and FASTA + qual input: the per-record
+    pipeline with its batched engine on the card, the same bytes as on the
+    CPU, ``dp_locate_word32`` launched."""
+    inp = _engine_reads(str(tmp_path / "in.fastq"), 18)
+    paths = _sam_and_fastaqual(tmp_path, inp)
+    outs = [str(tmp_path / "out.1.fastq")]
+    argv = ["-a", "tru=" + TRUSEQ, "-q", "20"]
+    if form == "se":
+        argv += ["-se", paths["se"], "-o", outs[0]]
+    elif form == "pe":
+        outs.append(str(tmp_path / "out.2.fastq"))
+        argv += ["-A", "tru2=" + TRUSEQ, "-l", paths["pe"], "-o", outs[0], "-p", outs[1]]
+    else:
+        argv += ["-se", paths["fasta"], "-sq", paths["qual"], "-o", outs[0]]
+    counts = _serial_on_both_devices(
+        argv + ["--quiet", "--no-cache-adapters",
+                "--report-file", str(tmp_path / "report.txt")], outs)
+    assert counts["dp_locate_word32"] > 0
+
+
+@pytest.mark.parametrize("read_len,kernel", [(150, "diag_counts_u8"), (300, "diag_counts_i32")])
+@pytest.mark.parametrize("action", ["liberal", "N"])
+def test_insert_correction_on_the_card_equals_the_cpu(card, tmp_path, read_len, kernel, action):
+    """``--correct-mismatches`` with the insert aligner on the turbo runner:
+    the counts kernel of the window on the card, the same corrected bytes
+    and correction counts as on the CPU."""
+    from atropos_tpu_torch.align import cuda_kernel, insert_kernel
+    from atropos_tpu_torch.commands import get_command
+
+    rng = np.random.default_rng(read_len)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    inputs = [str(tmp_path / "in.{}.fastq".format(mate)) for mate in (1, 2)]
+    with open(inputs[0], "w") as one, open(inputs[1], "w") as two:
+        for i in range(400):
+            ins = bases[rng.integers(0, 4, int(rng.integers(60, 2 * read_len)))].tobytes()
+            for mate, out in ((1, one), (2, two)):
+                frag = ins if mate == 1 else ins.translate(comp)[::-1]
+                ad = TRUSEQ if mate == 1 else "AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT"
+                seq = bytearray((frag.decode() + ad + "A" * read_len)[:read_len].encode())
+                for pos in rng.integers(0, read_len, 3):
+                    seq[pos] = bases[rng.integers(0, 4)]
+                qual = "".join(chr(33 + int(q)) for q in rng.integers(2, 41, read_len))
+                out.write("@p{}/{}\n{}\n+\n{}\n".format(i, mate, seq.decode(), qual))
+    results = {}
+    for device in ("cuda", "cpu"):
+        outs = [str(tmp_path / "{}.{}.fastq".format(device, i)) for i in (1, 2)]
+        cuda_kernel.reset_launch_counts()
+        insert_kernel.reset_launch_counts()
+        rc, summary = get_command("trim").execute(
+            ["--aligner", "insert", "-a", "ad1=" + TRUSEQ,
+             "-A", "ad2=AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT", "--correct-mismatches", action,
+             "-pe1", inputs[0], "-pe2", inputs[1], "-o", outs[0], "-p", outs[1],
+             "--quiet", "--no-cache-adapters", "--report-file", str(tmp_path / "report.txt")],
+            device=device,
+        )
+        assert rc == 0 and summary["mode"] == "turbo"
+        counts = dict(cuda_kernel.launch_counts(), **insert_kernel.launch_counts())
+        assert (counts[kernel] > 0) == (device == "cuda")
+        cutter = summary["trim"]["modifiers"]["InsertAdapterCutter"]
+        files = []
+        for path in outs:
+            with open(path, "rb") as handle:
+                files.append(handle.read())
+        results[device] = (files, cutter["records_corrected"], list(cutter["bp_corrected"]))
+    assert results["cuda"] == results["cpu"] and results["cuda"][1] > 0
+
+
+def test_stats_and_colorspace_on_the_card_equal_the_cpu(card, tmp_path):
+    """Per-record ``--stats both:tiles`` on a declined configuration: its
+    position counts on the card, the same report and bytes as on the CPU;
+    a colorspace golden on the card, with no launch."""
+    from atropos_tpu_torch.align import cuda_kernel
+    from atropos_tpu_torch.commands import get_command, stats
+
+    from .test_torch_colorspace import CASES, EXPECTED, case_argv
+
+    inp = str(tmp_path / "tiled.fastq")
+    rng = np.random.default_rng(21)
+    with open(_engine_reads(str(tmp_path / "plain.fastq"), 21)) as src, open(inp, "w") as out:
+        for i, line in enumerate(src):
+            if i % 4 == 0:
+                line = "@A0:1:FC:1:{}:{}:{}\n".format(1101 + int(rng.integers(0, 5)), i, i)
+            out.write(line)
+    reports = {}
+    for device in ("cuda", "cpu"):
+        before = dict(stats.DEVICE_STATS_COUNTS)
+        out = str(tmp_path / "{}.fastq".format(device))
+        report = str(tmp_path / "{}.report.txt".format(device))
+        rc, summary = get_command("trim").execute(
+            ["--stats", "both:tiles", "-a", "tru=" + TRUSEQ, "--times", "2", "-se", inp,
+             "-o", out, "--quiet", "--no-cache-adapters", "--report-file", report],
+            device=device)
+        assert rc == 0 and summary["mode"] == "serial"
+        assert stats.DEVICE_STATS_COUNTS[device] > before[device]
+        with open(out, "rb") as handle, open(report, "rb") as text:
+            data = text.read()
+            reports[device] = (handle.read(), data[data.index(b"--------\nTrimming"):])
+    assert reports["cuda"] == reports["cpu"]
+    name, params, expected, inpath, qualfile = CASES[0]
+    argv, out, _ = case_argv(params, expected, inpath, qualfile, str(tmp_path))
+    cuda_kernel.reset_launch_counts()
+    rc, summary = get_command("trim").execute(argv, device="cuda")
+    assert rc == 0 and summary["mode"] == "serial"
+    assert sum(cuda_kernel.launch_counts().values()) == 0
+    with open(out, "rb") as got, open(os.path.join(EXPECTED, expected), "rb") as want:
+        assert got.read() == want.read()

@@ -7,6 +7,7 @@ before they moved into one phase, run only by that phase's children), and
 the count of the dtype probe's column loops in a SASS listing
 (``sass_rows.py --probe``). The tools' timings run only on a card."""
 import os
+import time
 
 import pytest
 
@@ -155,7 +156,9 @@ CPU_CHECKS = {
     "main_path": 65536, "pe_insert_path": 163840, "pe_adapter_path": 163840,
     "pe_side_path": 163840, "pe_overwrite_path": 163840, "pe_insert_wide_path": 163840,
     "se_side_path": 163840, "se_engine_path": 65536, "pe_engine_path": 65536,
-    "pe_engine_insert_check": 2048,
+    "pe_engine_insert_check": 2048, "pe_correct_path": 163840, "se_sam_engine_path": 65536,
+    "pe_sam_engine_path": 65536, "se_fastaqual_engine_path": 65536,
+    "se_stats_serial_check": 8192,
 }
 
 
@@ -187,15 +190,35 @@ def test_every_card_path_has_one_cpu_check_of_its_records():
     import chip_smoke
 
     assert chip_smoke.CPU_CHECK_RECORDS == CPU_CHECKS
+    assert sorted(chip_smoke.CPU_CHECK_SECONDS) == sorted(CPU_CHECKS)
     tags = _deferred_tags()
     assert sorted(tags) == sorted(CPU_CHECKS), tags
+
+
+@pytest.mark.parametrize("jobs,cores,children,threads", [
+    (15, 8, 6, [2] + [1] * 14),   # the card's machine: 8 cores, one for the card
+    (10, 8, 6, [2] + [1] * 9),
+    (3, 8, 3, [3, 2, 2]),
+    (1, 8, 1, [7]),
+    (4, 2, 1, [1, 1, 1, 1]),
+])
+def test_cpu_phase_plan(jobs, cores, children, threads):
+    """The largest check takes two threads and the phase one child fewer,
+    so that the children's threads never exceed the host's cores less the
+    one that runs the untimed card checks."""
+    import chip_smoke
+
+    plan = chip_smoke.cpu_phase_plan(jobs, cores)
+    assert plan == (children, threads)
+    assert sum(sorted(threads, reverse=True)[:children]) <= max(1, cores - 1)
 
 
 def test_cpu_checks_run_only_in_the_cpu_phase(tmp_path, monkeypatch):
     """A card phase cannot run a ``--device cpu`` check (it would share the
     host with the phase's timing), deferring one runs nothing, a path
     cannot defer two, and the CPU phase runs what was deferred in a spawned
-    child and compares its output with the card's."""
+    child (the main process joins only for what no child has taken) and
+    compares its output with the card's."""
     import chip_smoke
 
     from .conformance_utils import cutpath, datapath
@@ -215,7 +238,11 @@ def test_cpu_checks_run_only_in_the_cpu_phase(tmp_path, monkeypatch):
     with pytest.raises(AssertionError):
         chip_smoke.defer_cpu("small", [dict(argv=list(argv), outs=[])])
     assert not os.path.exists(out) and len(chip_smoke.CPU_PENDING) == 1
-    assert chip_smoke.finish_cpu_phase(chip_smoke.start_cpu_phase()) > 0
+    cpu = chip_smoke.start_cpu_phase()
+    waited = time.monotonic()
+    while cpu["counter"].value < 1 and time.monotonic() - waited < 300:
+        time.sleep(0.2)
+    assert chip_smoke.finish_cpu_phase(cpu) > 0
     assert chip_smoke.CPU_PENDING == [] and not os.path.exists(out)
     assert os.path.exists(str(tmp_path / "cpu_small_0.report.txt"))
 

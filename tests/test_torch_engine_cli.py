@@ -6,8 +6,9 @@ command's serial mode. The same argv through ``atropos_tpu`` and through
 byte-identical outputs, equal summaries, equal reports (from their
 trimming section on: the header holds the times) and equal changes of the
 engines' ``BUILD_COUNTS`` and ``MATCH_COUNTS``, over a seeded fuzz of the
-options of the slice, single-end and paired-end. For every decline reason
-of the turbo runner that the command line can reach, both packages choose
+options of the slice, single-end and paired-end, also on SAM and FASTA +
+qual input and with per-record ``--stats``. For every decline reason of
+the turbo runner that the command line can reach, both packages choose
 the same mode.
 
 All inputs are made from a seed with numpy; every adapter is named;
@@ -57,8 +58,8 @@ def _deltas(before, after):
 def run_package(which, argv, out_paths, report, monkeypatch, stdin=None,
                 stdout=None):
     """One argv through one package; returns (mode, {path: bytes},
-    comparable summary, report sections, counter changes, the engine's
-    last fallback reason). ``stdin``/``stdout`` name files that stand in
+    comparable summary, report sections, counter changes, the fallback
+    reason the run recorded, None if it built an engine or none at all). ``stdin``/``stdout`` name files that stand in
     for the standard streams. Both packages number the adapters without a
     name (a linked adapter's parts among them) from 1 for the run, as a
     fresh process would: each keeps its counter for the life of the
@@ -72,6 +73,9 @@ def run_package(which, argv, out_paths, report, monkeypatch, stdin=None,
     with monkeypatch.context() as patch:
         patch.setattr(jax_parser if which == "jax" else port_parser, "_ADAPTER_IDS",
                       itertools.count(1))
+        # the reason this run records: a run that builds no engine (the
+        # statistics wrapper) records none, whatever an earlier test left
+        patch.setattr(engine_mod, "LAST_FALLBACK_REASON", None)
         if stdin is not None:
             handles.append(open(stdin))
             patch.setattr(sys, "stdin", handles[-1])
@@ -88,6 +92,7 @@ def run_package(which, argv, out_paths, report, monkeypatch, stdin=None,
         finally:
             for handle in handles:
                 handle.close()
+        reason = engine_mod.LAST_FALLBACK_REASON
     assert retcode == 0
     files = {}
     for path in out_paths + ([stdout] if stdout else []):
@@ -96,7 +101,7 @@ def run_package(which, argv, out_paths, report, monkeypatch, stdin=None,
                 files[path] = handle.read()
     return (
         summary["mode"], files, _comparable(summary), _report_sections(report),
-        _deltas(before, _counters(engine_mod)), engine_mod.LAST_FALLBACK_REASON,
+        _deltas(before, _counters(engine_mod)), reason,
     )
 
 
@@ -304,6 +309,84 @@ def test_fuzz_paired_end_serial(tmp_path, monkeypatch, seed):
     assert match["scalar_reads"] == 0
 
 
+# -- SAM, FASTA + qual and per-record --stats: the fuzz over other inputs --------
+
+
+def _write_sam(path, records, paired=False):
+    """Unaligned SAM records (flag 4; pairs: 77 and 141 under one name)."""
+    with open(path, "w") as out:
+        out.write("@HD\tVN:1.6\tSO:queryname\n")
+        for record in records:
+            mates = record if paired else (record,)
+            for flag, (name, seq, qual) in zip(("77", "141") if paired else ("4",), mates):
+                if paired:
+                    name = name[:-2]
+                # a one-base read of quality 9 would spell SAM's "no
+                # qualities" ("*"); both packages read it so
+                qual = qual if qual != "*" else "+"
+                out.write("\t".join([name, flag, "*", "0", "0", "*", "*", "0", "0",
+                                     seq or "*", qual or "*"]) + "\n")
+    return path
+
+
+def _write_fasta_qual(folder, records):
+    fasta, qual = os.path.join(folder, "in.fasta"), os.path.join(folder, "in.qual")
+    with open(fasta, "w") as fa, open(qual, "w") as qu:
+        for name, seq, quals in records:
+            fa.write(">{}\n{}\n".format(name, seq))
+            qu.write(">{}\n{}\n".format(name, " ".join(str(ord(q) - 33) for q in quals)))
+    return fasta, qual
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_fuzz_single_end_formats(tmp_path, monkeypatch, seed):
+    """The single-end fuzz's options on SAM or FASTA + qual input, now and
+    then with ``--stats`` (with tiles: Illumina names), through both
+    packages: the pipeline, its batched engine where no statistics are
+    collected, per record on the scalar aligner where they are."""
+    rng = seeded("engine-se-formats", seed)
+    parts, declined = random_se_config(rng)
+    parts = [part for part in parts if part not in ("--subsample", "0.6")]
+    if "--subsample-seed" in parts:
+        at = parts.index("--subsample-seed")
+        del parts[at : at + 2]
+    records = make_reads(rng, 160, ("ACGT", "ACGTN")[int(rng.integers(2))], max_len=120,
+                         adapters=(TRUSEQ, FRONT, ANYWHERE))
+    records = [(name, seq, qual) for name, seq, qual in records if seq]
+    stats = ("", "pre", "both", "both:tiles")[int(rng.integers(4))]
+    if stats.endswith("tiles"):
+        records = [("A0:1:FC:1:{}:{}:{}".format(1101 + i % 5, i, i),) + record[1:]
+                   for i, record in enumerate(records)]
+    if seed % 2:
+        io = ["-se", _write_sam(str(tmp_path / "in.sam"), records)]
+    else:
+        fasta, qual = _write_fasta_qual(str(tmp_path), records)
+        io = ["-se", fasta, "-sq", qual]
+    out = str(tmp_path / "out.fastq")
+    io += ["-o", out]
+    if stats:
+        io += ["--stats", stats, "--batch-size", "64"]
+    run = run_both(parts + io + tail(tmp_path), [out], str(tmp_path / "report.txt"),
+                   monkeypatch)
+    build, match = run[4]
+    assert build == ({"engine": 0, "fallback": 0} if stats else {"engine": 1, "fallback": 0})
+    assert match["scalar_reads"] == 0
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fuzz_paired_end_sam(tmp_path, monkeypatch, seed):
+    """The paired-end fuzz's options on one SAM of pairs (``-l``)."""
+    rng = seeded("engine-pe-sam", seed)
+    parts, side_outs, _ = random_pe_config(rng, tmp_path)
+    pairs = make_pairs(rng, 100, (80, 120)[int(rng.integers(2))], "ACGT", n_rate=0.01)
+    pairs = [pair for pair in pairs if pair[0][1] and pair[1][1]]
+    sam = _write_sam(str(tmp_path / "pairs.sam"), pairs, paired=True)
+    outs = [str(tmp_path / "out.1.fastq"), str(tmp_path / "out.2.fastq")]
+    run = run_both(parts + ["-l", sam, "-o", outs[0], "-p", outs[1]] + tail(tmp_path),
+                   outs + side_outs, str(tmp_path / "report.txt"), monkeypatch)
+    assert run[4][0] == {"engine": 1, "fallback": 0}
+
+
 # -- the mode of every decline reason ----------------------------------------------
 
 SMALL = datapath("small.fastq")
@@ -342,6 +425,14 @@ MODE_CASES = [
       "-w", "10,30,10", "--info-file", "{tmp}/info.txt"], True, "serial"),
     (["--aligner", "insert", "-a", "ad1=TTAGACATAT", "-A", "ad2=CAGTGGAGTA",
       "-n", "2"], True, "serial"),
+    (["-a", "ad=TTAGACATATCTCCGTCG", "--stats", "both", "--times", "2"], False, "serial"),
+    (["--aligner", "insert", "-a", "ad1=TTAGACATAT", "-A", "ad2=CAGTGGAGTA",
+      "--correct-mismatches", "liberal"], True, "turbo"),
+    (["--aligner", "insert", "-a", "ad1=TTAGACATAT", "-A", "ad2=CAGTGGAGTA",
+      "--correct-mismatches", "N", "--stats", "both"], True, "serial"),
+    (["--aligner", "insert", "-a", "ad1=TTAGACATAT", "-A", "ad2=CAGTGGAGTA",
+      "--correct-mismatches", "conservative", "--info-file", "{tmp}/info.txt"],
+     True, "serial"),
 ]
 
 

@@ -6,20 +6,35 @@ that lie in the ported slice go through ``atropos_tpu_torch`` on ``cpu``
 and must reproduce ``tests/conformance/expected/`` byte for byte, with
 their side files (rest, info and wildcard files, the demultiplexed
 outputs) as the upstream tests check them. The cases the turbo runner
-declines run through the port's per-record pipeline and its batched
-engine (``SERIAL``) and must do the same; the colorspace cases must raise
-``NotPortedError`` naming their ROADMAP.md queue item, before any output
-is written.
+declines run through the port's per-record pipeline (``SERIAL``), on its
+batched engine or, for the colorspace cases, per record on the scalar
+aligner as in the reference, and must do the same.
+
+The case table imports nothing but the port, so that ``chip_smoke.py``
+runs the colorspace cases on the card.
 """
 import os
 
 import pytest
 
-from atropos_tpu_torch import ROADMAP_ITEMS, NotPortedError
 from atropos_tpu_torch.commands import get_command
+from atropos_tpu_torch.io import xopen
 
-from .conformance_utils import assert_files_equal, cutpath
-from .conformance_utils import datapath as D
+CONFORMANCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conformance")
+
+
+def D(name):
+    return os.path.join(CONFORMANCE, "data", name)
+
+
+def cutpath(name):
+    return os.path.join(CONFORMANCE, "expected", name)
+
+
+def assert_files_equal(expected, actual):
+    """The two files' text (read through the port's ``xopen``) is equal."""
+    with xopen(expected, "r") as want, xopen(actual, "r") as got:
+        assert got.read() == want.read(), "{} differs from {}".format(actual, expected)
 
 #: (name, parameters, golden file, input file); ``{tmp}`` is the test's
 #: scratch directory
@@ -105,20 +120,15 @@ CASES = [
  ("demultiplex","-a first=AATTTCAGGAATT -a second=GTTCTCTAGTTCT","twoadapters.{name}.fasta","twoadapters.fasta"),
 ]
 
-#: cases outside the slice -> the topic of the ROADMAP.md item they wait for
-NOT_PORTED = {
-    "minimum_length": "engine",
-    "too_short": "engine",
-    "too_short_no_primer": "engine",
-    "maximum_length": "engine",
-    "too_long": "engine",
-    "suffix": "engine",
-}
-
 #: ported cases that the turbo runner declines: they run through the
 #: per-record pipeline and its batched engine (``mode`` "serial")
 SERIAL = ("length_tag", "mask_adapter", "strip_suffix", "info_file_times",
           "no_trim", "linked")
+
+#: the SOLiD colorspace cases (``-c``): serial too, with no engine (its
+#: fallback reason is "colorspace") and no kernel launch
+COLORSPACE = ("minimum_length", "too_short", "too_short_no_primer",
+              "maximum_length", "too_long", "suffix")
 
 #: further output files of the ported cases: (file written, golden file);
 #: a golden of ``tests/conformance/data`` is named with its directory
@@ -127,6 +137,9 @@ SIDE_OUTPUTS = {
     "rest": (("rest.tmp", "../data/rest.txt"),),
     "restfront": (("rest.tmp", "../data/restfront.txt"),),
     "info_file": (("info.txt", "illumina.info.txt"),),
+    "too_short": (("tooshort.tmp.fa", "../data/tooshort.fa"),),
+    "too_short_no_primer": (("tooshort.tmp.fa", "../data/tooshort.noprimer.fa"),),
+    "too_long": (("toolong.tmp.fa", "../data/toolong.fa"),),
     "info_file_times": (("info.txt", "illumina5.info.txt"),),
     "demultiplex": tuple(
         ("twoadapters.{}.fasta".format(name), "twoadapters.{}.fasta".format(name))
@@ -141,8 +154,7 @@ WILDCARD_LINES = {
     "adapter_wildcard_b": ["AAA 1", "GGG 2", "CCC 3b", "TTT 4b"],
 }
 
-PORTED = [case for case in CASES if case[0] not in NOT_PORTED]
-UNPORTED = [case for case in CASES if case[0] in NOT_PORTED]
+PORTED = CASES
 
 
 def _argv(params, expected, inpath, tmp_path):
@@ -156,10 +168,10 @@ def _argv(params, expected, inpath, tmp_path):
 
 def test_case_table_is_complete():
     assert len(CASES) == len({case[0] for case in CASES}) == 79
-    assert set(NOT_PORTED) <= {case[0] for case in CASES}
-    assert set(NOT_PORTED.values()) <= set(ROADMAP_ITEMS)
-    assert set(SERIAL) <= {case[0] for case in PORTED}
-    assert len(PORTED) == 73
+    assert set(SERIAL + COLORSPACE) <= {case[0] for case in PORTED}
+    assert {case[0] for case in CASES if " -c " in " " + case[1] + " "} == set(
+        COLORSPACE
+    )
 
 
 @pytest.mark.parametrize(
@@ -170,7 +182,7 @@ def test_golden(name, params, expected, inpath, tmp_path):
     retcode, summary = get_command("trim").execute(argv, device="cpu")
     assert "exception" not in summary, summary.get("exception")
     assert retcode == 0
-    mode = "serial" if name in SERIAL else "turbo"
+    mode = "serial" if name in SERIAL + COLORSPACE else "turbo"
     assert summary["mode"] == mode and summary["device"] == "cpu"
     if name not in SIDE_OUTPUTS or "{name}" not in expected:
         assert_files_equal(cutpath(expected), out)
@@ -181,17 +193,3 @@ def test_golden(name, params, expected, inpath, tmp_path):
             lines = [line.strip() for line in wct.readlines()]
         assert lines == WILDCARD_LINES[name]
     assert os.path.exists(str(tmp_path / "report.txt"))
-
-
-@pytest.mark.parametrize(
-    "name,params,expected,inpath", UNPORTED, ids=[c[0] for c in UNPORTED]
-)
-def test_outside_the_slice_raises(name, params, expected, inpath, tmp_path):
-    argv, out = _argv(params, expected, inpath, tmp_path)
-    with pytest.raises(NotPortedError) as err:
-        get_command("trim").execute(argv, device="cpu")
-    assert err.value.topic == NOT_PORTED[name]
-    assert "ROADMAP.md queue 1 item" in str(err.value)
-    assert ROADMAP_ITEMS[NOT_PORTED[name]] in str(err.value)
-    assert not os.path.exists(out.replace("{name}", "first"))
-    assert not os.path.exists(out)

@@ -265,6 +265,49 @@ sys.exit(rc)
             assert got.read() == expected.read()
 
 
+def test_colorspace_sam_stats_and_correction_run_with_jax_and_the_reference_package_blocked(
+        tmp_path):
+    """A colorspace golden, text SAM input, per-record ``--stats
+    both:tiles`` and ``--correct-mismatches`` with the insert aligner, on
+    ``cpu``; every module of the port imported, and neither ``pysam`` nor
+    ``srastream`` with them (both are imported only where they are
+    used)."""
+    sam = str(tmp_path / "in.sam")
+    with open(sam, "w") as handle:
+        handle.write(SAM_LINES)
+    done = _run(
+        r'''
+import importlib, pkgutil
+import atropos_tpu_torch
+for module in pkgutil.walk_packages(atropos_tpu_torch.__path__, "atropos_tpu_torch."):
+    importlib.import_module(module.name)
+from atropos_tpu_torch.__main__ import main
+args = sys.argv[1:]
+tail = ["--quiet", "--adapter-cache-file", args[5], "--report-file", args[6]]
+rc = main(["trim", "-c", "-e", "0.122", "-a", "330201030313112312", "-se", args[0],
+           "-o", args[1]] + tail, device="cpu")
+rc |= main(["trim", "-a", "ad=ACGTACGTAC", "-se", args[2], "-o", args[1] + ".sam.fastq"]
+           + tail, device="cpu")
+rc |= main(["trim", "--stats", "both:tiles", "--times", "2", "-a", "ad=GCCGAACTTCTTA",
+            "-se", args[3], "-o", args[1] + ".stats.fastq"] + tail, device="cpu")
+rc |= main(["trim", "--aligner", "insert", "-a", "TTAGACATAT", "-A", "CAGTGGAGTA",
+            "--correct-mismatches", "liberal", "-pe1", args[4], "-pe2",
+            args[4].replace(".1.", ".2."), "-o", args[1] + ".1.fastq",
+            "-p", args[1] + ".2.fastq"] + tail, device="cpu")
+loaded = sorted(n for n in sys.modules if n.split(".")[0] in Refuse.BLOCKED)
+assert not loaded, loaded
+assert "pysam" not in sys.modules and "srastream" not in sys.modules
+sys.exit(rc)
+''',
+        datapath("solid.fastq"), str(tmp_path / "solid.fastq"), sam,
+        datapath("illumina5.fastq"), datapath("paired.1.fastq"),
+        str(tmp_path / ".adapters"), str(tmp_path / "report.txt"),
+    )
+    assert done.returncode == 0, done.stderr
+    with open(str(tmp_path / "solid.fastq")) as got, open(cutpath("solid.fastq")) as expected:
+        assert got.read() == expected.read()
+
+
 def test_blocker_really_blocks():
     done = _run("import atropos_tpu\n")
     assert done.returncode != 0 and "refused in this test" in done.stderr
@@ -418,22 +461,63 @@ def test_options_the_turbo_runner_declines_run_serial(tmp_path, extra):
     assert results[0] == results[1]
 
 
+#: configurations that raised NotPortedError until queue 1 items 4b and 11
+#: were ported, with the mode both packages run them in
+FORMERLY_OUTSIDE_ARGVS = [
+    (["-pe1", "paired.1.fastq", "-pe2", "paired.2.fastq", "-A", "ad2=ACGT",
+      "--aligner", "insert", "--correct-mismatches", "liberal"], "turbo"),
+    (["-se", "illumina5.fastq", "--stats", "both:tiles"], "serial"),
+    (["-se", "small.fastq", "--stats", "both", "--times", "2"], "serial"),
+    (["-se", "solid.fastq", "-c"], "serial"),
+    (["-se", "{tmp}/in.sam"], "serial"),
+    (["-se", "E3M.fasta", "-sq", "E3M.qual"], "serial"),
+]
+
+
+@pytest.mark.parametrize(
+    "extra,mode", FORMERLY_OUTSIDE_ARGVS, ids=lambda e: " ".join(e[-2:])
+    if isinstance(e, list) else e,
+)
+def test_formerly_outside_the_slice_match_the_reference(tmp_path, extra, mode):
+    """Colorspace, FASTA + qual, SAM, per-record ``--stats`` (with tiles)
+    and ``--correct-mismatches`` with the insert aligner: both packages
+    give the same bytes, summary and mode."""
+    from atropos_tpu import commands as jax_commands
+    from atropos_tpu_torch import commands as port_commands
+
+    from .test_torch_turbo_se import _comparable
+
+    with open(str(tmp_path / "in.sam"), "w") as handle:
+        handle.write(SAM_LINES)
+    argv, _ = _slice_argv(extra, tmp_path)
+    outs = [p for p in argv if p.startswith(str(tmp_path)) and p.endswith(".fastq")]
+    results = []
+    for which in ("jax", "port"):
+        for path in outs:
+            if os.path.exists(path):
+                os.remove(path)
+        if which == "jax":
+            retcode, summary = jax_commands.get_command("trim").execute(argv[1:])
+        else:
+            retcode, summary = port_commands.get_command("trim").execute(
+                argv[1:], device="cpu"
+            )
+        assert retcode == 0 and summary["mode"] == mode
+        files = {}
+        for path in outs:
+            with open(path, "rb") as handle:
+                files[path] = handle.read()
+        results.append((files, _comparable(summary)))
+    assert results[0] == results[1]
+
+
 @pytest.mark.parametrize("extra,topic", [
-    (["-pe1", "paired.1.fastq", "-pe2", "paired.2.fastq", "-A", "ACGT",
-      "--aligner", "insert", "--correct-mismatches", "liberal"], "insert-correct"),
     (["-se", "small.fastq", "--threads", "2"], "multi-gpu"),
-    (["-se", "small.fastq", "--stats", "both:tiles"], "engine"),
-    (["-se", "small.fastq", "--stats", "both", "--times", "2"], "engine"),
-    (["-se", "small.fastq", "-c"], "engine"),
-    (["-se", "{tmp}/in.sam"], "engine"),
-    (["-se", "E3M.fasta", "-sq", "E3M.qual"], "engine"),
 ])
 def test_options_outside_the_slice_raise(tmp_path, extra, topic):
     from atropos_tpu_torch import ROADMAP_ITEMS, NotPortedError
     from atropos_tpu_torch.__main__ import main
 
-    with open(str(tmp_path / "in.sam"), "w") as handle:
-        handle.write(SAM_LINES)
     argv, out = _slice_argv(extra, tmp_path)
     with pytest.raises(NotPortedError) as err:
         main(argv, device="cpu")

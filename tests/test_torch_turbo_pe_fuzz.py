@@ -81,3 +81,52 @@ def test_fuzz_paired(tmp_path, seed):
         io += ["--info-file", outs[-1]]
     argv = parts + io
     assert_same(run_both(argv + tail(tmp_path), outs), "seed {}: {}".format(seed, argv))
+
+
+def random_correct_config(rng, tmp_path):
+    """One draw of ``--correct-mismatches`` with the insert aligner: the
+    action, the options of the slice beside it, and now and then one of
+    the turbo runner's declines (``--stats``, an info file). Returns
+    (argv parts, extra outputs, the mode both packages must choose)."""
+    parts = ["--aligner", "insert", "-a", "ad1=" + AD1, "-A", "ad2=" + AD2,
+             "--correct-mismatches", ("liberal", "conservative", "N")[int(rng.integers(3))]]
+    parts += ["-e", ("0.1", "0.2")[int(rng.integers(2))]]
+    if rng.random() < 0.5:
+        parts += ["--insert-match-error-rate", ("0.1", "0.3")[int(rng.integers(2))]]
+    if rng.random() < 0.4:
+        parts += ["-q", str(int(rng.integers(5, 30)))]
+    if rng.random() < 0.3:
+        parts += ["-u", str(int(rng.integers(1, 6))), "-U", str(-int(rng.integers(1, 6)))]
+    if rng.random() < 0.4:
+        parts += ["-m", str(int(rng.integers(1, 40)))]
+    if rng.random() < 0.3:
+        parts += ["--trim-n"]
+    outs, mode = [], "turbo"
+    roll = rng.random()
+    if roll < 0.2:
+        parts += ["--stats", ("pre", "post", "both")[int(rng.integers(3))]]
+        mode = "serial"
+    elif roll < 0.35:
+        outs.append(str(tmp_path / "info.txt"))
+        parts += ["--info-file", outs[-1]]
+        mode = "serial"
+    return parts, outs, mode
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_fuzz_paired_correct_mismatches(tmp_path, monkeypatch, seed):
+    """``--correct-mismatches`` with the insert aligner, on the turbo runner
+    or through its declines: the same mode, bytes, summary (the correction
+    counts among them) and report in both packages."""
+    from .test_torch_engine_cli import run_both as run_both_modes
+
+    rng = seeded("fuzz-pe-correct", seed)
+    parts, side_outs, mode = random_correct_config(rng, tmp_path)
+    read_len = (80, 150, 270)[int(rng.integers(3))]
+    pairs = make_pairs(rng, 120, read_len, ("ACGT", "ACGTN")[int(rng.integers(2))],
+                       n_rate=0.01, poly_a=int(rng.integers(0, 3)), sub_rate=0.03)
+    layout = int(rng.integers(3))
+    inputs = write_pairs(tmp_path, pairs, interleaved=layout == 2)
+    io, outs = io_argv(inputs, tmp_path, interleaved_out=layout == 1)
+    run_both_modes(parts + io + tail(tmp_path), outs + side_outs,
+                   str(tmp_path / "report.txt"), monkeypatch, mode=mode)
