@@ -112,13 +112,7 @@ COMMANDS = {
 }
 
 
-#: commands of ``atropos_tpu`` that have no counterpart here yet
-_UNPORTED_COMMANDS = ("detect", "error", "qc")
-
-
 def get_command(name):
-    if name in _UNPORTED_COMMANDS:
-        raise NotPortedError("the {!r} command".format(name), "commands")
     try:
         return COMMANDS[name]
     except KeyError:

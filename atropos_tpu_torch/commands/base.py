@@ -5,9 +5,8 @@ Records stream off a reader and are grouped into fixed-size batches (the
 unit of work the batched engine encodes into arrays for the device).
 Summaries are merge-capable dict trees that collapse to plain data at the
 end of a run. Counterpart of ``atropos_tpu/commands/base.py`` for one
-process on one device: the multi-host sharding of the batches and the
-``--progress`` wrapper of the batch iterator, which only logs, are not
-part of this package.
+process on one device: the multi-host sharding of the batches is not part
+of this package; ``--progress`` wraps the batch iterator as there.
 """
 import platform
 import sys
@@ -169,6 +168,16 @@ class BaseCommandRunner:
                                       options.subsample_seed)
         self.iterable = enumerate(source, 1)
         self._batch_source = self._generate_batches()
+
+        self._progress_options = None
+        if options.progress:
+            self._progress_options = (
+                options.progress,
+                self.size,
+                self.max_reads,
+                options.counter_magnitude,
+            )
+
         self.init_summary()
 
     #: reader-constructor arguments copied verbatim from the options
@@ -223,7 +232,13 @@ class BaseCommandRunner:
     # -- batching ------------------------------------------------------------
 
     def iterator(self):
-        """The batch iterator."""
+        """The batch iterator, progress-wrapped when requested."""
+        if self._progress_options:
+            from atropos_tpu_torch.io.progress import create_progress_reader
+
+            wrapped = create_progress_reader(self, *self._progress_options)
+            if wrapped is not None:
+                return wrapped
         return self
 
     def __iter__(self):

@@ -180,6 +180,14 @@ class BaseCommandParser:
             help="Sequence alphabet for validating inputs. (no validation)",
         )
 
+        group = self.add_group("Device", title="Device options")
+        group.add_argument(
+            "--device", choices=("cuda", "cpu"), default=None,
+            help="Where the command's device work runs. Without this "
+                 "option the run is on 'cuda' and fails when no card is "
+                 "usable; only an explicit 'cpu' runs on the CPU. (cuda)",
+        )
+
     def add_command_options(self):
         raise NotImplementedError()
 

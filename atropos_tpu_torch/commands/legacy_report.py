@@ -5,7 +5,7 @@ Layout-compatible with the reference
 trimming count/bp tables, per-adapter removed-length histograms with
 expected-by-chance columns and per-length error-count mini-histograms,
 adjacent-base warnings, and the pre-/post-trim read-statistics tables
-(``--stats``). The byte-level layout equals that of
+(``--stats``, the qc command). The byte-level layout equals that of
 ``atropos_tpu/commands/legacy_report.py``.
 """
 import math
@@ -246,6 +246,15 @@ def generate_report(summary, outfile):
 def generate_trim_report(summary, outfile):
     with open_output(outfile, "w", context_wrapper=True) as out:
         generate_report(summary, out)
+
+
+def generate_stats_report(out, summary):
+    """qc command text report (the stats sections only)."""
+    print_summary_report(summary, out)
+    if "pre" in summary:
+        print_pre_trim_report(summary, out)
+    if "post" in summary:
+        print_post_trim_report(summary, out)
 
 
 # -- run summary -------------------------------------------------------------------

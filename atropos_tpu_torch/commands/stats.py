@@ -1,6 +1,7 @@
 """FastQC-style read statistics over fixed-shape count tensors.
 
-Counterpart of ``atropos_tpu/commands/stats.py`` for ``trim --stats``:
+Counterpart of ``atropos_tpu/commands/stats.py`` for ``trim --stats`` and
+the qc command:
 statistics accumulate into dense count matrices — ``[Lmax, 256]``
 per-position byte composition for bases and qualities, dense histogram
 vectors for length and GC content — straight from the padded ``[B, W]``
@@ -9,8 +10,10 @@ byte matrices the turbo runners already hold
 the reference feeds one record at a time (``collect_record``), hands over
 a batch's records at once (:meth:`ReadStatistics.collect_records`), with
 the reference's per-record order and rules kept, including the per-tile
-tables of ``--stats :tiles``. Summaries render to the exact dict schema of
-the reference, so reports are unchanged.
+tables of ``--stats :tiles``; the qc command's record pipeline collects a
+batch as the reference's does (:meth:`ReadStatistics.collect_batch`).
+Summaries render to the exact dict schema of the reference, so reports are
+unchanged.
 
 The per-position byte counts run where the run runs:
 :func:`position_byte_counts` is one torch function on the statistics'
@@ -302,29 +305,36 @@ class ReadStatistics:
         lengths = np.fromiter(
             (len(record[1]) for record in records), np.int64, count
         )
-        seqs = np.zeros((count, int(lengths.max())), np.uint8)
-        for row, record in enumerate(records):
-            seqs[row, : lengths[row]] = np.frombuffer(
-                record[1].encode("ascii"), np.uint8
-            )
+        width = int(lengths.max())
+        seqs = _pad_bytes([record[1] for record in records], lengths, width)
         self._collect_bases(seqs, lengths)
         if not self.qualities:
             return
         rows = [row for row, record in enumerate(records) if record[2] is not None]
         if not rows:
             return
-        quals = np.zeros_like(seqs[rows])
-        for out_row, row in enumerate(rows):
-            quals[out_row, : lengths[row]] = np.frombuffer(
-                records[row][2].encode("ascii"), np.uint8
-            )
+        quals = _pad_bytes([records[row][2] for row in rows], lengths[rows], width)
         names = [records[row][0] for row in rows] if self.track_tiles else None
         self._collect_qualities(quals, lengths[rows], names)
 
-    def collect_matrices(self, seqs, quals, lengths):
+    def collect_batch(self, records):
+        """Collect a batch of records (objects with ``name``, ``sequence``
+        and ``qualities``) as the reference's qc command does: the
+        qualities of the whole batch count when its first record has
+        qualities, and switch the tables on then."""
+        if not records:
+            return
+        seqs, quals, lengths = _encode_batch(records)
+        names = (
+            [record.name for record in records] if self.track_tiles else None
+        )
+        self.collect_matrices(seqs, quals, lengths, names=names)
+
+    def collect_matrices(self, seqs, quals, lengths, names=None):
         """Vectorized collection straight from padded uint8 matrices
         (``[B, W]`` sequences/qualities + a length vector), the form the
-        turbo runners hold. Bytes beyond each read's length are ignored."""
+        turbo runners hold. Bytes beyond each read's length are ignored.
+        ``names`` is needed only when per-tile statistics are tracked."""
         count = lengths.shape[0]
         if count == 0:
             return
@@ -333,7 +343,7 @@ class ReadStatistics:
             self._init_qualities()
         self._collect_bases(seqs, lengths)
         if self.qualities and quals is not None:
-            self._collect_qualities(quals, lengths)
+            self._collect_qualities(quals, lengths, names)
 
     def _collect_bases(self, seqs, lengths):
         self.count += lengths.shape[0]
@@ -364,6 +374,8 @@ class ReadStatistics:
         self.base_qualities.add_batch(quals, live)
         if not self.track_tiles:
             return
+        if names is None:
+            raise ValueError("per-tile statistics require record names")
         kept = [name for name, keep in zip(names, nonempty) if keep]
         by_tile = {}
         for row, name in enumerate(kept):
@@ -395,6 +407,30 @@ class ReadStatistics:
         return summary
 
 
+def _encode_batch(records):
+    """Pack record sequences and qualities into padded uint8 matrices; the
+    qualities are None when the first record has none."""
+    count = len(records)
+    lengths = np.fromiter(
+        (len(record.sequence) for record in records), np.int32, count
+    )
+    width = int(lengths.max()) if count else 0
+    seqs = _pad_bytes([record.sequence for record in records], lengths, width)
+    quals = None
+    if records and records[0].qualities is not None:
+        quals = _pad_bytes([record.qualities for record in records], lengths, width)
+    return seqs, quals, lengths
+
+
+def _pad_bytes(texts, lengths, width):
+    """``[len(texts), width]`` uint8 matrix of ASCII strings, each row
+    zero-padded past its length."""
+    out = np.zeros((len(texts), width), np.uint8)
+    for row, text in enumerate(texts):
+        out[row, : lengths[row]] = np.frombuffer(text.encode("ascii"), np.uint8)
+    return out
+
+
 def _clip_to_longest(matrix, lengths):
     """The matrix clipped to its longest row (so that position tables never
     grow all-zero rows beyond the observed lengths) and the mask of the
@@ -405,6 +441,11 @@ def _clip_to_longest(matrix, lengths):
 
 
 class SingleEndReadStatistics(ReadStatistics):
+    def collect_batch(self, records):
+        super().collect_batch(
+            [r[0] if isinstance(r, tuple) else r for r in records]
+        )
+
     def summarize(self):
         return dict(read1=super().summarize())
 
@@ -419,6 +460,11 @@ class PairedEndReadStatistics:
         pair."""
         self.read1.collect_records([pair[0] for pair in records])
         self.read2.collect_records([pair[1] for pair in records])
+
+    def collect_batch(self, records):
+        """``records``: a pair of record objects a pair."""
+        self.read1.collect_batch([pair[0] for pair in records])
+        self.read2.collect_batch([pair[1] for pair in records])
 
     def summarize(self):
         return dict(read1=self.read1.summarize(), read2=self.read2.summarize())

@@ -379,14 +379,6 @@ Trim adapters and low-quality bases, and perform other NGS preprocessing.
             help="Preset for miRNA data. (no)",
         )
 
-        group = self.add_group("Device", title="Device options")
-        group.add_argument(
-            "--device", choices=("cuda", "cpu"), default=None,
-            help="Where the alignment step runs. Without this option the "
-                 "run is on 'cuda' and fails when no card is usable; only "
-                 "an explicit 'cpu' runs on the CPU. (cuda)",
-        )
-
         group = self.add_group("Parallel", title="Parallel (multi-core) options")
         group.add_argument(
             "-T", "--threads", type=positive(int, True), default=None,

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Start the port on the GPU: build, check and time its kernels, and drive
 its single-end and paired-end paths end to end, through the turbo runners
-and through the per-record pipeline with its batched engine.
+and through the per-record pipeline with its batched engine, and its qc,
+detect and error commands.
 
 Run from the root of a checkout, with one NVIDIA Hopper card:
 
@@ -19,6 +20,9 @@ object a line:
                 instantiation of ``dp_locate_word32`` takes, and a row of
                 each dtype probe kernel's column loops, counted in the SASS
                 just built (``cuda_tools/sass_rows.py``)
+   ``inputs``   the large seeded inputs of the paths below, written by
+                spawned processes while the kernels build: the wall time,
+                each writer's seconds and each input's bytes
 3. ``grid``     ``dp_locate_word32`` and ``dp_locate_wide`` against the plain
                 PyTorch DP on the card over a covering set of configurations
                 (indel costs 1, 2, 3 and 100000; adapters on both sides of
@@ -60,7 +64,7 @@ object a line:
 11. ``pe_overwrite_path``  1,000,000 new pairs of 2x150, a tenth of them
                 with one mate's 5' window at quality 2 and the other's at 35,
                 through ``--aligner adapter -w 10,30,10``
-12. ``se_side_path``  2,000,000 reads of 150 bases, a quarter each carrying a
+12. ``se_side_path``  1,000,000 reads of 150 bases, a quarter each carrying a
                 TruSeq, a Nextera and a small-RNA UMI adapter, through ``-o
                 out.{name}.fastq --info-file -r --wildcard-file --stats both``
                 with the three adapters named
@@ -77,13 +81,13 @@ object a line:
                 aligners) and the 20 colorspace cases (``-c``: the pipeline
                 on the scalar aligner, as in the reference; no launch) on the
                 card against ``tests/conformance``
-15. ``se_engine_path``  1,000,000 reads of 150 bases (``se_side_path``'s
+15. ``se_engine_path``  250,000 reads of 150 bases (``se_side_path``'s
                 generator) through ``trim -a truseq=... -a nextera=... -a
                 umi=... -n 2 --mask-adapter -y _{name}``: the turbo runner
                 declines it, so the per-record pipeline runs it, its batched
                 engine launching ``dp_locate_word32``; every clean TruSeq
                 copy of at least 20 bases is masked from its offset on
-16. ``pe_engine_path``  500,000 pairs of 2x150 through ``trim --aligner
+16. ``pe_engine_path``  125,000 pairs of 2x150 through ``trim --aligner
                 adapter --bisulfite swift``: the pipeline, ``dp_locate_word32``
 17. ``pe_engine_insert_check``  2,048 pairs (150 near-poly-A) through
                 ``--aligner insert -n 3 --mask-adapter`` (``diag_counts_u8``;
@@ -98,24 +102,46 @@ object a line:
                 ``--correct-mismatches liberal``: the turbo runner corrects
                 the overlaps on the host (``diag_counts_u8``,
                 ``dp_locate_word32``); the corrected pairs and bases
-19. ``se_sam_engine_path``  500,000 unaligned SAM records (flag 4) of
+19. ``se_sam_engine_path``  250,000 unaligned SAM records (flag 4) of
                 ``se_side_path``'s reads through ``-a truseq=... -a nextera=...
                 -a umi=... -se IN.sam``: the SAM reader and the pipeline,
                 ``dp_locate_word32``
-20. ``pe_sam_engine_path``  250,000 pairs in one queryname-sorted SAM (flags
+20. ``pe_sam_engine_path``  125,000 pairs in one queryname-sorted SAM (flags
                 77 and 141) through ``--aligner adapter -l IN.sam -o -p``
-21. ``se_fastaqual_engine_path``  250,000 reads as FASTA + ``.qual`` through
+21. ``se_fastaqual_engine_path``  125,000 reads as FASTA + ``.qual`` through
                 ``-a truseq=... -q 20 -se IN.fasta -sq IN.qual``
 22. ``se_stats_serial_check``  8,192 reads with Illumina names through
                 ``--stats both:tiles -a truseq=... --times 2``: no engine, every
                 read on the scalar aligner (the reference's route), the
                 position counts on the card; cut in size for the scalar step
-23. ``cpu_phase``  every ``--device cpu`` check, after the last timed card
+23. ``qc_path``  ``qc -se`` on the main path's reads (kept until here): the
+                native route, the statistics' position counts on the card;
+                the main path's CPU prefix with ``--max-reads 65536`` again
+24. ``pe_qc_path``  ``qc -pe1 -pe2`` on ``pe_insert_path``'s pairs
+25. ``detect_path``, ``detect_known_path``, ``detect_khmer_path``  ``detect``
+                with the bundled contaminants on the main path's first
+                ``DETECT_READS`` reads (the heuristic, the default; cut from
+                10,000), ``DETECT_KNOWN_READS`` (``-i known``; cut from
+                10,000) and ``DETECT_KHMER_READS`` (``-d khmer``): the k-mer
+                sorts and counts, or the contaminant intersections, on the
+                card; every input's matches
+26. ``pe_detect_check``  ``detect -i known`` on ``PE_DETECT_PAIRS`` pairs of
+                ``pe_insert_path``
+27. ``error_path``  ``error -se`` and ``error -pe1 -pe2`` at the default
+                ``--max-reads`` of 10,000 (host work, as in the reference)
+28. ``kmer_ops``  the k-mer count op on the card against ``np.unique`` at
+                ``KMER_HOLD_CODES`` codes and k of ``KMER_HOLD_KS``, the
+                intersection op at M x R = 256 and at the known path's shape
+                against ``np.isin`` and ``intersection_size``, tolerance 0;
+                each op's time on the card beside numpy's on the host. Each
+                of 23-27 prints its seconds, its rate, and its position
+                counts and k-mer ops on the card; none launches a kernel
+29. ``cpu_phase``  every ``--device cpu`` check, after the last timed card
                 phase (below): its wall time, each check's threads and
                 each child's seconds. The grids (3 and 4) and the goldens
                 (14), which time nothing, run beside it, after the timed
                 phases
-24. ``kernels``  for each kernel: launches on its path (counts set to 0 just
+30. ``kernels``  for each kernel: launches on its path (counts set to 0 just
                 before the path and read just after), error against the plain
                 version, time at the path's shape (``ms``: the median of
                 single launches, each between two events, the wrapper's host
@@ -137,13 +163,15 @@ object a line:
                 launches on the engine paths (``engine_launches``), for
                 ``diag_counts_u8`` also on ``pe_correct_path``
                 (``correct_path_launches``)
-25. the last line: ``{"ok": true, "device": {...}}``
+31. the last line: ``{"ok": true, "device": {...}}``
 
 Every path whose output the card makes also runs on ``--device cpu`` for a
-prefix of its input (``CPU_CHECK_RECORDS``: 65,536 reads of the main path
-and records of each engine path, ``(DEPTH + 2) x MAX_BATCH`` = 163,840
-reads or pairs of the other paths, all 2,048 pairs of the insert check and
-all 8,192 reads of the ``--stats`` check):
+prefix of its input (``CPU_CHECK_RECORDS``: ``(DEPTH + 2) x MAX_BATCH`` =
+163,840 reads of the main path and pairs of ``pe_insert_path``, whose
+prefixes reach the batches that reuse pinned slots; two batches, 65,536
+reads or pairs, of the other turbo paths and of qc; 32,768 records of each
+engine path; all 2,048 pairs of the insert check, all 8,192 reads of the
+``--stats`` check, and every record of the detect and error paths):
 the CPU's outputs must be byte-identical prefixes of the card's (the side
 files and every demultiplexed file among them); for the side and engine
 paths the card also runs the prefix alone, and its statistics, summary and
@@ -193,6 +221,8 @@ from atropos_tpu_torch.align.insert_kernel import (
 from atropos_tpu_torch import engine
 from atropos_tpu_torch.commands import get_command
 from atropos_tpu_torch.commands import stats
+from atropos_tpu_torch.commands import detect as detect_command
+from atropos_tpu_torch.commands.detect import kmers
 from atropos_tpu_torch.commands.trim import pipeline
 from atropos_tpu_torch.engine import turbo
 from atropos_tpu_torch.tools import dtype_probe
@@ -204,27 +234,55 @@ TRUSEQ = "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
 TRUSEQ2 = "AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT"
 PAIRS = 1000000  # 2x150 pairs of the insert and adapter paired-end paths
 WIDE_PAIRS = 200000  # 2x300 pairs of the wide insert path
-SIDE_READS = 2000000  # 150-base reads of the single-end side path
-# pairs of each paired-end path run again on the CPU: a pair batch holds at
-# most MAX_BATCH pairs, so this prefix holds the card's first DEPTH + 2
-# batches whole, and batches DEPTH + 1 and DEPTH + 2 reuse pinned upload and
-# fetch slots that earlier batches released
-CPU_PAIRS = (turbo.TurboPairedRunner.DEPTH + 2) * turbo.TurboPairedRunner.MAX_BATCH
-MAIN_CPU_READS = 65536  # reads of the main path run again on the CPU
-ENGINE_READS = 1000000  # 150-base reads of the single-end engine path
-ENGINE_PAIRS = 500000  # 2x150 pairs of the paired-end engine path
-ENGINE_CPU_RECORDS = 65536  # records of each engine path run again on the CPU
+# 150-base reads of the single-end side path: halved from 2,000,000 to keep the
+# script inside its time limit (host-bound side files)
+SIDE_READS = 1000000
+# records of the main single-end path and pairs of the insert path run again
+# on the CPU: a batch holds at most MAX_BATCH records, so this prefix holds
+# the card's first DEPTH + 2 batches whole, and batches DEPTH + 1 and
+# DEPTH + 2 reuse pinned upload and fetch slots that earlier batches released
+SLOT_REUSE_READS = (turbo.TurboTrimRunner.DEPTH + 2) * turbo.TurboTrimRunner.MAX_BATCH
+SLOT_REUSE_PAIRS = (turbo.TurboPairedRunner.DEPTH + 2) * turbo.TurboPairedRunner.MAX_BATCH
+# pairs of the other paired-end turbo paths run again on the CPU: two batches
+# whole, cut from DEPTH + 2 batches to keep the script inside its time limit
+# (the two prefixes above reach the reused slots)
+CPU_PAIRS = 2 * turbo.TurboPairedRunner.MAX_BATCH
+MAIN_CPU_READS = 65536  # reads of the qc path's prefix run again on the CPU
+# 150-base reads of the single-end engine path and 2x150 pairs of the
+# paired-end one: cut from 1,000,000 and 500,000 (twice halved) to keep the
+# script inside its time limit on a slow host; both paths are host-bound
+# per-record Python
+ENGINE_READS = 250000
+ENGINE_PAIRS = 125000
+# records of each engine path run again on the CPU (cut from 65,536): the
+# pipeline's batches hold 1,000 records, so the prefix spans 32 and more
+ENGINE_CPU_RECORDS = 32768
 # pairs of the engine's insert and merge check (150 of them near-poly-A), all
 # run again on the CPU: the per-pair host steps of these configurations are
 # scalar Python, as in the reference
 INSERT_CHECK_PAIRS, INSERT_CHECK_POLY_A = 2048, 150
-SAM_READS = 500000  # unaligned SAM records of the single-end SAM path
-SAM_PAIRS = 250000  # pairs of the paired-end SAM path, in one SAM
-FASTAQUAL_READS = 250000  # reads of the FASTA + qual path
+# the SAM and FASTA + qual paths, halved with the engine paths they are made of
+SAM_READS = 250000  # unaligned SAM records of the single-end SAM path
+SAM_PAIRS = 125000  # pairs of the paired-end SAM path, in one SAM
+FASTAQUAL_READS = 125000  # reads of the FASTA + qual path
 # reads of the --stats check of a declined configuration, all run again on
 # the CPU: the pipeline collects its statistics per record and matches its
 # adapters on the scalar aligner (no engine), as the reference does
 STATS_CHECK_READS = 8192
+# reads of the detect paths, from the main path's input, and pairs of the
+# paired check, from pe_insert_path's; every one runs again on the CPU. The
+# heuristic's rounds and the known detector's scoring are per-k-mer and
+# per-read Python, as in the reference: detect_path is cut from the default
+# --max-reads of 10,000 to 1,000 reads, detect_known_path to 4,000
+DETECT_READS = 1000
+DETECT_KNOWN_READS = 4000
+DETECT_KHMER_READS = 10000
+PE_DETECT_PAIRS = 2000
+ERROR_RECORDS = 10000  # error's default --max-reads, single-end and paired
+# codes of the hold of the k-mer count op, at k = 12, 13 and 21: both sides
+# of the op's threshold, and two large corpora
+KMER_HOLD_CODES = (1 << 14, (1 << 14) + 1, 1 << 20, 1 << 24)
+KMER_HOLD_KS = (12, 13, 21)
 DEVICE = torch.device("cuda", 0)
 HBM_BYTES_PER_SECOND = 3.35e12  # H100 SXM data sheet
 # integer operations an SM can issue a clock: 4 schedulers, one warp
@@ -610,7 +668,9 @@ def phase_grid(seed):
     served_wide = {}  # dp_locate_wide's
     rounds = {}  # the strips' fix-up rounds, by configuration
     found_total = 0
+    config_seconds = []  # (seconds, configuration) of each configuration
     for cfg in grid_configs():
+        config_began = time.perf_counter()
         aligner, reads_T, lens = grid_inputs(seed, cfg)
         params = aligner._dp_params()
         expected = _locate_kernel(
@@ -656,6 +716,7 @@ def phase_grid(seed):
                 check(how.kind == "global", (kernel.name, "global column", cfg, how))
                 global_column[kernel.name] = cfg["idx"]
         found_total += int(expected[0].sum())
+        config_seconds.append((time.perf_counter() - config_began, cfg))
     check(
         compared["dp_locate_word32"] >= 32 and compared["dp_locate_wide"] >= 15,
         'compared["dp_locate_word32"] >= 32 and compared["dp_locate_wide"] >= 15',
@@ -678,6 +739,10 @@ def phase_grid(seed):
             "reads_with_a_match": found_total,
             "tolerance": 0,
             "seconds": time.perf_counter() - began,
+            # where the phase's time goes: its eight slowest configurations
+            "slowest": [dict(seconds=seconds, idx=cfg["idx"], m=cfg["m"], L=cfg["L"],
+                             B=cfg["B"], indel_cost=cfg["indel_cost"])
+                        for seconds, cfg in sorted(config_seconds, key=lambda sc: -sc[0])[:8]],
             "global_column_configurations": global_column,
         }
     })
@@ -1011,12 +1076,8 @@ def run_trim(argv, device):
     return seconds, counts, dict(turbo.LAST_RUN)
 
 
-def phase_main_path(work, seed, n_reads, runs):
-    rng = np.random.default_rng([seed, 2])
-    fastq = os.path.join(work, "reads.fastq")
-    began = time.perf_counter()
-    clean, start = write_truseq_fastq(fastq, rng, n_reads)
-    made = time.perf_counter() - began
+def phase_main_path(work, made, n_reads, runs):
+    (fastq,), (clean, start), made = made
     out = os.path.join(work, "trimmed.fastq")
     tail = ["--quiet", "--no-cache-adapters", "--report-file", os.path.join(work, "report.txt")]
     argv = ["trim", "-a", TRUSEQ, "-se", fastq, "-o", out] + tail
@@ -1039,7 +1100,7 @@ def phase_main_path(work, seed, n_reads, runs):
     check(wrong == 0, "{} reads with a clean adapter were not cut at its offset".format(wrong))
     trimmed = int((lengths < 150).sum())
 
-    # the first 65,536 reads again on the CPU (in the CPU phase): a
+    # the first DEPTH + 2 batches again on the CPU (in the CPU phase): a
     # byte-identical prefix
     records = CPU_CHECK_RECORDS["main_path"]
     prefix = write_prefix(fastq, records, os.path.join(work, "main_prefix.fastq"))
@@ -1346,16 +1407,12 @@ def split_seconds(run):
     }
 
 
-def phase_pe_insert(work, seed, n_pairs, read_len, mean, kernel, poly_a):
-    """``trim --aligner insert`` on seeded pairs: the counts kernel the
-    window selects runs once a pair batch, ``dp_locate_word32`` once a
-    batch for each mate's fallback adapter match."""
-    rng = np.random.default_rng([seed, 6, read_len])
-    in1 = os.path.join(work, "pairs{}.1.fastq".format(read_len))
-    in2 = os.path.join(work, "pairs{}.2.fastq".format(read_len))
-    began = time.perf_counter()
-    inserts, _ = write_pairs(in1, in2, rng, n_pairs, read_len, mean, 70, poly_a)
-    made = time.perf_counter() - began
+def phase_pe_insert(work, made, n_pairs, read_len, mean, kernel, poly_a):
+    """``trim --aligner insert`` on seeded pairs (``made``: written by
+    :func:`write_pairs` with ``poly_a``): the counts kernel the window
+    selects runs once a pair batch, ``dp_locate_word32`` once a batch for
+    each mate's fallback adapter match."""
+    (in1, in2), (inserts, _), made = made
     outs = [os.path.join(work, "trimmed_pe{}.{}.fastq".format(read_len, i)) for i in (1, 2)]
     argv = pe_argv("insert", in1, in2, *outs, work)
     seconds, counts, run = run_trim(argv, "cuda")
@@ -1417,8 +1474,9 @@ SIDE_ADAPTERS = (
     ("nextera", "CTGTCTCTTATACACATCT"),
     ("umi", "TGGAATTCTCNNNNNNCCAAGG"),
 )
-#: records of each side path run again on the CPU (and alone on the card)
-PREFIX_RECORDS = turbo.TurboTrimRunner.MAX_BATCH * (turbo.TurboTrimRunner.DEPTH + 2)
+#: records of each side path run again on the CPU (and alone on the card):
+#: two batches whole, cut as ``CPU_PAIRS``
+PREFIX_RECORDS = 2 * turbo.TurboTrimRunner.MAX_BATCH
 
 
 def write_side_fastq(path, rng, n_reads, read_len=150, chunk=250000):
@@ -1493,11 +1551,17 @@ def keep_card_prefix(path, records):
     os.replace(kept, path)
 
 
-def run_trim_summary(argv, device):
-    """One command line through the trim command's entry point, as
-    :func:`run_trim` does, also returning the run's summary, its mode, how
-    many position counts of the statistics ran on each device type and
-    the changes of the batched engine's ``BUILD_COUNTS`` and
+def kmer_counts():
+    """A copy of the detect command's counts of k-mer ops by device type."""
+    return {device: dict(kinds) for device, kinds in kmers.DEVICE_KMER_COUNTS.items()}
+
+
+def run_summary(argv, device):
+    """One command line (``argv[0]`` the command: trim, qc, detect or
+    error) through its command's entry point, as :func:`run_trim` does,
+    also returning the run's summary, its mode, how many position counts
+    of the statistics and how many k-mer ops of detect ran on each device
+    type, and the changes of the batched engine's ``BUILD_COUNTS`` and
     ``MATCH_COUNTS`` and of the records the pipeline ran without an engine
     (``per_record``). ``run`` is the turbo runner's record, None for a run
     of the per-record pipeline."""
@@ -1505,21 +1569,25 @@ def run_trim_summary(argv, device):
     cuda_kernel.reset_launch_counts()
     insert_kernel.reset_launch_counts()
     stats_before = dict(stats.DEVICE_STATS_COUNTS)
+    kmers_before = kmer_counts()
     engine_before = (dict(engine.BUILD_COUNTS), dict(engine.MATCH_COUNTS))
     per_record_before = pipeline.PER_RECORD_COUNTS["records"]
     turbo.LAST_RUN.clear()
     began = time.perf_counter()
-    retcode, summary = get_command("trim").execute(argv[1:], device=device)
+    retcode, summary = get_command(argv[0]).execute(argv[1:], device=device)
     seconds = time.perf_counter() - began
     counts = dict(cuda_kernel.launch_counts(), **insert_kernel.launch_counts())
     if retcode != 0 or "exception" in summary:
-        raise RuntimeError("trim failed ({}): {} {}".format(
-            retcode, argv, summary.get("exception")))
+        raise RuntimeError("{} failed ({}): {} {}".format(
+            argv[0], retcode, argv, summary.get("exception")))
     return dict(
         seconds=seconds, counts=counts, mode=summary["mode"], summary=summary,
         run=dict(turbo.LAST_RUN) if summary["mode"] == "turbo" else None,
         stats_counts={key: stats.DEVICE_STATS_COUNTS[key] - stats_before[key]
                       for key in stats_before},
+        kmer_counts={device: {kind: count - kmers_before[device][kind]
+                              for kind, count in kinds.items()}
+                     for device, kinds in kmer_counts().items()},
         build_counts={key: engine.BUILD_COUNTS[key] - engine_before[0][key]
                       for key in engine_before[0]},
         match_counts={key: engine.MATCH_COUNTS[key] - engine_before[1][key]
@@ -1532,15 +1600,30 @@ def _plain_json(value):
     return json.loads(json.dumps(value, default=str))
 
 
+#: the header lines of a report that hold the command line and the times
+REPORT_HEADER = (b"Command line", b"Start time", b"Wallclock", b"CPU time")
+
+
 def _report_sections(path):
-    """A report from its trimming section on (the header holds the command
-    line and the times)."""
+    """A trim report from its trimming section on (the header holds the
+    command line and the times); another command's report less its
+    header's command line and times."""
     with open(path, "rb") as handle:
         data = handle.read()
-    return data[data.index(b"--------\nTrimming"):]
+    at = data.find(b"--------\nTrimming")
+    if at >= 0:
+        return data[at:]
+    return b"".join(line for line in data.splitlines(True)
+                    if not line.startswith(REPORT_HEADER))
 
 
-SUMMARY_KEYS = ("pre", "post", "trim")
+SUMMARY_KEYS = ("pre", "post", "trim", "detect", "errorrate")
+
+
+def report_at(argv):
+    """The index in ``argv`` of the report's path: ``--report-file``'s of
+    trim, ``-o``'s of qc, detect and error."""
+    return argv.index("--report-file" if argv[0] == "trim" else "-o") + 1
 
 
 def prefix_checks(make_argv, inputs, card_outs, work, tag, run_equal=(), lines=(4,)):
@@ -1567,7 +1650,7 @@ def prefix_checks(make_argv, inputs, card_outs, work, tag, run_equal=(), lines=(
     for folder in folders.values():
         os.makedirs(folder)
     argv, outs, report = make_argv(prefixes, folders["cuda"])
-    card = run_trim_summary(argv, "cuda")
+    card = run_summary(argv, "cuda")
     if "pre" in card["summary"] or "post" in card["summary"]:
         check(card["stats_counts"]["cuda"] > 0, card["stats_counts"])
     for path in card_outs:
@@ -1592,8 +1675,8 @@ def prefix_checks(make_argv, inputs, card_outs, work, tag, run_equal=(), lines=(
 #: of its input that the CPU runs again: each path has exactly one entry in
 #: the CPU phase (the counts the checks had when each ran inside its phase)
 CPU_CHECK_RECORDS = {
-    "main_path": MAIN_CPU_READS,
-    "pe_insert_path": CPU_PAIRS,
+    "main_path": SLOT_REUSE_READS,
+    "pe_insert_path": SLOT_REUSE_PAIRS,
     "pe_adapter_path": CPU_PAIRS,
     "pe_side_path": PREFIX_RECORDS,
     "pe_overwrite_path": PREFIX_RECORDS,
@@ -1607,6 +1690,13 @@ CPU_CHECK_RECORDS = {
     "pe_sam_engine_path": ENGINE_CPU_RECORDS,
     "se_fastaqual_engine_path": ENGINE_CPU_RECORDS,
     "se_stats_serial_check": STATS_CHECK_READS,
+    "qc_path": MAIN_CPU_READS,
+    "pe_qc_path": CPU_PAIRS,
+    "detect_path": DETECT_READS,
+    "detect_known_path": DETECT_KNOWN_READS,
+    "detect_khmer_path": DETECT_KHMER_READS,
+    "pe_detect_check": PE_DETECT_PAIRS,
+    "error_path": ERROR_RECORDS,
 }
 #: the CPU checks the card phases left for the CPU phase
 CPU_PENDING = []
@@ -1640,7 +1730,7 @@ def defer_cpu(tag, runs):
     check(tag in CPU_CHECK_RECORDS, tag)
     check(all(job["tag"] != tag for job in CPU_PENDING), ("a second CPU check", tag))
     for i, spec in enumerate(runs):
-        at = spec["argv"].index("--report-file") + 1
+        at = report_at(spec["argv"])
         if "report" not in spec:
             spec["report"] = os.path.join(
                 os.path.dirname(spec["argv"][at]), "cpu_{}_{}.report.txt".format(tag, i))
@@ -1662,14 +1752,15 @@ def cpu_child(tag, argvs, threads, per_record):
     began = time.perf_counter()
     runs = []
     for argv, expected in zip(argvs, per_record):
-        res = run_trim_summary(argv, "cpu")
+        res = run_summary(argv, "cpu")
         check(sum(res["counts"].values()) == 0, (tag, res["counts"]))
         check(res["stats_counts"]["cuda"] == 0, (tag, res["stats_counts"]))
+        check(not any(res["kmer_counts"]["cuda"].values()), (tag, res["kmer_counts"]))
         check(res["match_counts"]["scalar_reads"] == 0, (tag, res["match_counts"]))
         check(res["per_record"] == expected, (tag, res["per_record"], expected))
         summary = res.pop("summary")
         res["summary"] = {key: _plain_json(summary.get(key)) for key in SUMMARY_KEYS}
-        res["report_sections"] = _report_sections(argv[argv.index("--report-file") + 1])
+        res["report_sections"] = _report_sections(argv[report_at(argv)])
         runs.append(res)
     return dict(tag=tag, seconds=time.perf_counter() - began, threads=threads, runs=runs)
 
@@ -1730,17 +1821,18 @@ def cpu_phase_plan(n_jobs, host_cores):
     return children, [threads + extra] + [threads] * (n_jobs - 1)
 
 
-#: the seconds each CPU check took on the host of an NVIDIA H100 80GB HBM3
-#: at 700 W (the longest check on two threads; PERF.md section 6): the CPU
-#: phase hands the checks out longest first, so that no long check starts
-#: late
+#: the seconds each CPU check took on one thread on the host of an NVIDIA
+#: H100 80GB HBM3 at 700 W (PERF.md section 6): the CPU phase hands the
+#: checks out longest first, so that no long check starts late
 CPU_CHECK_SECONDS = {
-    "pe_insert_wide_path": 340, "se_side_path": 293, "pe_adapter_path": 291,
-    "pe_overwrite_path": 290, "pe_side_path": 225, "pe_correct_path": 216,
-    "pe_insert_path": 197, "se_engine_path": 167, "se_sam_engine_path": 87,
-    "pe_sam_engine_path": 84, "pe_engine_path": 79, "main_path": 51,
-    "se_fastaqual_engine_path": 44, "pe_engine_insert_check": 12,
-    "se_stats_serial_check": 4,
+    "pe_insert_wide_path": 226, "pe_insert_path": 211, "main_path": 168,
+    "se_side_path": 134, "pe_overwrite_path": 134, "pe_adapter_path": 132,
+    "se_engine_path": 99, "pe_side_path": 93, "pe_correct_path": 88,
+    "pe_engine_path": 50, "se_sam_engine_path": 50, "pe_sam_engine_path": 49,
+    "se_fastaqual_engine_path": 25, "pe_engine_insert_check": 13,
+    "detect_path": 8, "pe_detect_check": 7, "detect_known_path": 7,
+    "se_stats_serial_check": 4, "detect_khmer_path": 3, "pe_qc_path": 1, "qc_path": 1,
+    "error_path": 1,
 }
 
 
@@ -1880,14 +1972,10 @@ def count_records(path):
         return sum(chunk.count(b"\n") for chunk in iter(lambda: handle.read(1 << 24), b"")) // 4
 
 
-def phase_se_side(work, seed, n_reads):
+def phase_se_side(work, made, n_reads):
     """Demultiplexing by three named adapters with info, rest and wildcard
     files and pre- and post-trim statistics."""
-    rng = np.random.default_rng([seed, 9])
-    fastq = os.path.join(work, "side.fastq")
-    began = time.perf_counter()
-    kinds, _, _ = write_side_fastq(fastq, rng, n_reads)
-    made = time.perf_counter() - began
+    (fastq,), (kinds, _, _), made = made
 
     def make_argv(inputs, folder):
         out = os.path.join(folder, "out.{name}.fastq")
@@ -1905,7 +1993,7 @@ def phase_se_side(work, seed, n_reads):
     folder = os.path.join(work, "se_side_card")
     os.makedirs(folder)
     argv, outs, _ = make_argv([fastq], folder)
-    res = run_trim_summary(argv, "cuda")
+    res = run_summary(argv, "cuda")
     seconds, counts, run, summary, stats_counts = (
         res["seconds"], res["counts"], res["run"], res["summary"], res["stats_counts"])
     check(run["device"].startswith("cuda") and run["reads"] == n_reads, run)
@@ -1947,7 +2035,7 @@ def phase_pe_side(work, inputs, n_pairs):
     folder = os.path.join(work, "pe_side_card")
     os.makedirs(folder)
     argv, outs, _ = make_argv(inputs, folder)
-    res = run_trim_summary(argv, "cuda")
+    res = run_summary(argv, "cuda")
     seconds, counts, run, summary, stats_counts = (
         res["seconds"], res["counts"], res["run"], res["summary"], res["stats_counts"])
     check(run["device"].startswith("cuda") and run["pairs"] == n_pairs, run)
@@ -1967,14 +2055,10 @@ def phase_pe_side(work, inputs, n_pairs):
     )
 
 
-def phase_pe_overwrite(work, seed, n_pairs):
+def phase_pe_overwrite(work, made, n_pairs):
     """``-w 10,30,10`` with the adapter aligner on pairs of which a tenth
     have one mate with a low-quality 5' window."""
-    rng = np.random.default_rng([seed, 10])
-    inputs = [os.path.join(work, "ow.{}.fastq".format(i)) for i in (1, 2)]
-    began = time.perf_counter()
-    _, planted = write_pairs(*inputs, rng, n_pairs, 150, 220, 70, low_window=(0.1, 10))
-    made = time.perf_counter() - began
+    inputs, (_, planted), made = made
 
     def make_argv(paths, folder):
         outs = [os.path.join(folder, "trimmed.{}.fastq".format(i)) for i in (1, 2)]
@@ -1985,7 +2069,7 @@ def phase_pe_overwrite(work, seed, n_pairs):
     folder = os.path.join(work, "pe_overwrite_card")
     os.makedirs(folder)
     argv, outs, _ = make_argv(inputs, folder)
-    res = run_trim_summary(argv, "cuda")
+    res = run_summary(argv, "cuda")
     seconds, counts, run = res["seconds"], res["counts"], res["run"]
     check(run["device"].startswith("cuda") and run["pairs"] == n_pairs, run)
     check(counts["dp_locate_word32"] == run["batches"] * run["device_aligners"] > 0, (counts, run))
@@ -2105,17 +2189,13 @@ def output_sequences(path, read_len):
     return chunk.padded_sequences(read_len)
 
 
-def phase_se_engine(work, seed, n_reads):
+def phase_se_engine(work, made, n_reads):
     """A multiplexed library trimmed in two rounds, masked so that lengths
     stay fixed for the tools downstream, each name tagged with the adapter
     found: ``-n 2 --mask-adapter -y _{name}``, which the turbo runner
     declines. The per-record pipeline runs it, its batched engine matching
     every adapter of every round on the card (``dp_locate_word32``)."""
-    rng = np.random.default_rng([seed, 15])
-    fastq = os.path.join(work, "engine.fastq")
-    began = time.perf_counter()
-    kinds, offsets, clean = write_side_fastq(fastq, rng, n_reads)
-    made = time.perf_counter() - began
+    (fastq,), (kinds, offsets, clean), made = made
 
     def make_argv(inputs, folder):
         out = os.path.join(folder, "masked.fastq")
@@ -2131,7 +2211,7 @@ def phase_se_engine(work, seed, n_reads):
     os.makedirs(folder)
     argv, outs, _ = make_argv([fastq], folder)
     with _HostCalls(ENGINE_SPLIT) as calls:
-        res = run_trim_summary(argv, "cuda")
+        res = run_summary(argv, "cuda")
     record = engine_record(res, n_reads, "reads")
     record["split"] = engine_split(calls, res["seconds"])
     counts = res["counts"]
@@ -2163,16 +2243,12 @@ def phase_se_engine(work, seed, n_reads):
     ), (fastq, kinds, offsets, clean)
 
 
-def phase_pe_engine(work, seed, n_pairs):
+def phase_pe_engine(work, made, n_pairs):
     """Methylation libraries made with the Swift Accel-NGS kit: ``--aligner
     adapter --bisulfite swift`` (a pair modifier the turbo runner declines),
     through the per-record pipeline with each mate's adapter matched on the
     card by its batched engine."""
-    rng = np.random.default_rng([seed, 16])
-    inputs = [os.path.join(work, "engine_pairs.{}.fastq".format(i)) for i in (1, 2)]
-    began = time.perf_counter()
-    inserts, _ = write_pairs(*inputs, rng, n_pairs, 150, 220, 70)
-    made = time.perf_counter() - began
+    inputs, (inserts, _), made = made
 
     def make_argv(paths, folder):
         outs = [os.path.join(folder, "swift.{}.fastq".format(i)) for i in (1, 2)]
@@ -2184,7 +2260,7 @@ def phase_pe_engine(work, seed, n_pairs):
     os.makedirs(folder)
     argv, outs, _ = make_argv(inputs, folder)
     with _HostCalls(ENGINE_SPLIT) as calls:
-        res = run_trim_summary(argv, "cuda")
+        res = run_summary(argv, "cuda")
     record = engine_record(res, n_pairs, "pairs")
     record["split"] = engine_split(calls, res["seconds"])
     counts = res["counts"]
@@ -2241,7 +2317,7 @@ def phase_pe_engine_insert_check(work, seed):
             outs.append(os.path.join(folder, "merged.fastq"))
             argv += ["--merged-output", outs[-1]]
         with _HostCalls(host) as calls:
-            res = run_trim_summary(argv, "cuda")
+            res = run_summary(argv, "cuda")
         record = engine_record(res, INSERT_CHECK_PAIRS, "pairs", batched=label == "merge")
         counts = res["counts"]
         if label == "insert":
@@ -2382,7 +2458,7 @@ def phase_se_sam_engine(work, source, n_reads):
     os.makedirs(folder)
     argv, outs, _ = make_argv([sam], folder)
     with _HostCalls(ENGINE_SPLIT) as calls:
-        res = run_trim_summary(argv, "cuda")
+        res = run_summary(argv, "cuda")
     record = serial_record(res, n_reads, "reads")
     record["split"] = engine_split(calls, res["seconds"])
     counts = res["counts"]
@@ -2427,7 +2503,7 @@ def phase_pe_sam_engine(work, source, n_pairs):
     os.makedirs(folder)
     argv, outs, _ = make_argv([sam], folder)
     with _HostCalls(ENGINE_SPLIT) as calls:
-        res = run_trim_summary(argv, "cuda")
+        res = run_summary(argv, "cuda")
     record = serial_record(res, n_pairs, "pairs")
     record["split"] = engine_split(calls, res["seconds"])
     counts = res["counts"]
@@ -2476,7 +2552,7 @@ def phase_se_fastaqual_engine(work, source, n_reads):
     os.makedirs(folder)
     argv, outs, _ = make_argv([fasta, qual], folder)
     with _HostCalls(ENGINE_SPLIT) as calls:
-        res = run_trim_summary(argv, "cuda")
+        res = run_summary(argv, "cuda")
     record = serial_record(res, n_reads, "reads")
     record["split"] = engine_split(calls, res["seconds"])
     counts = res["counts"]
@@ -2529,7 +2605,7 @@ def phase_se_stats_serial_check(work, seed):
     report = os.path.join(folder, "report.txt")
     argv = ["trim", "--stats", "both:tiles", "-a", "truseq=" + TRUSEQ, "--times", "2",
             "-se", fastq, "-o", out, "--quiet", "--no-cache-adapters", "--report-file", report]
-    res = run_trim_summary(argv, "cuda")
+    res = run_summary(argv, "cuda")
     record = serial_record(res, STATS_CHECK_READS, "reads", per_record=True)
     check(sum(res["counts"].values()) == 0, res["counts"])
     batches = -(-STATS_CHECK_READS // 1000)
@@ -2563,7 +2639,7 @@ def phase_pe_correct(work, inputs, n_pairs):
     outs = [os.path.join(work, "corrected.{}.fastq".format(i)) for i in (1, 2)]
     argv = pe_argv("insert", *inputs, *outs, work, report="report_correct.txt")
     argv += ["--correct-mismatches", "liberal"]
-    res = run_trim_summary(argv, "cuda")
+    res = run_summary(argv, "cuda")
     seconds, counts, run = res["seconds"], res["counts"], res["run"]
     check(res["mode"] == "turbo" and run["device"].startswith("cuda"), res["mode"])
     check(run["aligner"] == "insert" and run["pairs"] == n_pairs, run)
@@ -2581,6 +2657,255 @@ def phase_pe_correct(work, inputs, n_pairs):
         batches=run["batches"], launches=counts, corrected_pairs=corrected[0],
         corrected_bp=corrected[1], split_seconds=split_seconds(run),
     )
+
+
+# -- the qc, detect and error commands -------------------------------------------
+
+
+def command_checks(tag, makers, work, mode):
+    """Runs of qc, detect or error on the card and their ``--device cpu``
+    check: each of ``makers`` (folder) -> (argv, report) runs on the card
+    now and on the CPU in the CPU phase, whose summary and report (less
+    the header's command line and times) must equal the card's. None of
+    these paths launches a kernel. Returns the card's runs."""
+    folders = {device: os.path.join(work, "{}_{}".format(tag, device))
+               for device in ("cpu", "cuda")}
+    for folder in folders.values():
+        os.makedirs(folder)
+    cards, specs = [], []
+    for i, make_argv in enumerate(makers):
+        argv, report = make_argv(os.path.join(folders["cuda"], str(i)))
+        card = run_summary(argv, "cuda")
+        check(card["mode"] == mode, (tag, card["mode"]))
+        check(sum(card["counts"].values()) == 0, (tag, card["counts"]))
+        check(not any(card["kmer_counts"]["cpu"].values()), (tag, card["kmer_counts"]))
+        check(card["stats_counts"]["cpu"] == 0, (tag, card["stats_counts"]))
+        cpu_argv, cpu_report = make_argv(os.path.join(folders["cpu"], str(i)))
+        specs.append(dict(
+            argv=cpu_argv, report=cpu_report, outs=[], mode=mode,
+            summary={key: _plain_json(card["summary"].get(key)) for key in SUMMARY_KEYS},
+            report_sections=_report_sections(report),
+        ))
+        cards.append(card)
+    defer_cpu(tag, specs)
+    return cards
+
+
+def command_record(res, n_records, unit):
+    """What a qc, detect or error path prints: its seconds and rate, and
+    its position counts and k-mer ops on the card."""
+    return {
+        "seconds": res["seconds"], unit: n_records,
+        unit + "_per_second": n_records / res["seconds"], "mode": res["mode"],
+        "position_counts_on_cuda": res["stats_counts"]["cuda"],
+        "kmer_ops_on_cuda": res["kmer_counts"]["cuda"],
+    }
+
+
+def phase_qc(work, fastq, n_reads):
+    """``qc -se`` on the main path's reads: the native route (chunks parsed
+    by the runtime, padded byte matrices into the statistics), the
+    position counts on the card. Then ``--max-reads`` of the main path's
+    CPU prefix on the card, and again on the CPU in the CPU phase."""
+    folder = os.path.join(work, "qc_card")
+    os.makedirs(folder)
+    report = os.path.join(folder, "qc.txt")
+    res = run_summary(["qc", "-se", fastq, "-o", report, "--quiet"], "cuda")
+    check(res["mode"] == "turbo", res["mode"])
+    check(sum(res["counts"].values()) == 0, res["counts"])
+    check(res["stats_counts"]["cuda"] > 0 and res["stats_counts"]["cpu"] == 0,
+          res["stats_counts"])
+    read1 = next(iter(res["summary"]["pre"].values()))["read1"]
+    check(read1["counts"] == n_reads == res["summary"]["total_record_count"], read1["counts"])
+    check(res["summary"]["total_bp_counts"][0] == 150 * n_reads, "qc bases")
+    records = CPU_CHECK_RECORDS["qc_path"]
+    prefix = os.path.join(work, "main_prefix.fastq")
+
+    def make_argv(out):
+        report = out + ".qc.txt"
+        return ["qc", "-se", prefix, "--max-reads", str(records), "-o", report,
+                "--quiet"], report
+
+    (card_prefix,) = command_checks("qc_path", [make_argv], work, "turbo")
+    check(card_prefix["stats_counts"]["cuda"] > 0, card_prefix["stats_counts"])
+    return dict(
+        argv="qc -se reads.fastq -o qc.txt", read_length=150,
+        **command_record(res, n_reads, "reads"),
+        prefix_check={"records": records, "card_prefix_seconds": card_prefix["seconds"]},
+    )
+
+
+def phase_pe_qc(work, inputs, n_pairs):
+    """``qc -pe1 -pe2`` on ``pe_insert_path``'s pairs, both mate files in
+    lockstep on the native route; the first ``CPU_PAIRS`` pairs again on
+    the card and on the CPU."""
+
+    def make_argv(paths, folder):
+        report = os.path.join(folder, "qc.txt")
+        return ["qc", "-pe1", paths[0], "-pe2", paths[1], "-o", report, "--quiet"], [], report
+
+    folder = os.path.join(work, "pe_qc_card")
+    os.makedirs(folder)
+    argv, _, _ = make_argv(inputs, folder)
+    res = run_summary(argv, "cuda")
+    check(res["mode"] == "turbo", res["mode"])
+    check(sum(res["counts"].values()) == 0, res["counts"])
+    check(res["stats_counts"]["cuda"] > 0 and res["stats_counts"]["cpu"] == 0,
+          res["stats_counts"])
+    pre = next(iter(res["summary"]["pre"].values()))
+    check(pre["read1"]["counts"] == pre["read2"]["counts"] == n_pairs, "qc pairs")
+    prefix, card_prefix = prefix_checks(make_argv, inputs, [], work, "pe_qc_path")
+    check(card_prefix["mode"] == "turbo", card_prefix["mode"])
+    return dict(argv="qc -pe1 IN1 -pe2 IN2 -o qc.txt", read_length=150,
+                **command_record(res, n_pairs, "pairs"), prefix_check=prefix)
+
+
+#: what the detect paths' split times: the two k-mer ops on the card (each
+#: call with its uploads and fetches) and the whole counting of k-mers
+#: (packing, the count op, k-mer strings and membership sets)
+DETECT_SPLIT = ((kmers, "unique_counts"), (kmers, "intersection_counts"),
+                (detect_command, "count_corpus"))
+
+
+def detect_matches(res):
+    """Each input's matches: the longest k-mer, whether known, the names."""
+    return [[{"longest_kmer": match["longest_kmer"], "is_known": match["is_known"],
+              "known_names": match["known_names"]} for match in matches]
+            for matches in res["summary"]["detect"]["matches"]]
+
+
+def phase_detect(work, tag, inputs, n_records, extra, kind):
+    """``detect`` with ``extra`` options on the first ``n_records`` records
+    of ``inputs`` (one file, or a pair), with the bundled contaminants, on
+    the card and in the CPU phase on the CPU. The k-mer ops of ``kind``
+    (``batches``: sort and count; ``intersect_batches``: the contaminant
+    panel) run on the card; every input's matches are printed and one at
+    least is found."""
+    paths = [write_prefix(path, n_records, os.path.join(work, "{}.{}.fastq".format(tag, i)))
+             for i, path in enumerate(inputs)]
+    inputs_argv = ["-se", paths[0]] if len(paths) == 1 else [
+        "-pe1", paths[0], "-pe2", paths[1]]
+
+    def make_argv(out):
+        report = out + ".detect.txt"
+        return (["detect"] + inputs_argv + extra
+                + ["--no-cache-contaminants", "-o", report, "--quiet"], report)
+
+    with _HostCalls(DETECT_SPLIT) as calls:
+        (res,) = command_checks(tag, [make_argv], work, "serial")
+    check(res["kmer_counts"]["cuda"][kind] > 0, (tag, res["kmer_counts"]))
+    matches = detect_matches(res)
+    check(all(matches), (tag, "no contaminant found", matches))
+    unit = "reads" if len(paths) == 1 else "pairs"
+    shown = ["-se", "IN"] if len(paths) == 1 else ["-pe1", "IN1", "-pe2", "IN2"]
+    return dict(argv=" ".join(["detect"] + shown + extra), **command_record(res, n_records, unit),
+                split=engine_split(calls, res["seconds"]), matches=matches)
+
+
+def phase_error(work, se_input, pe_inputs):
+    """``error -se`` and ``error -pe1 -pe2`` at the default ``--max-reads``
+    (``ERROR_RECORDS``): the quality estimator, on the host as in the
+    reference (the command resolves its device all the same)."""
+    paths = [write_prefix(path, ERROR_RECORDS,
+                          os.path.join(work, "error_in.{}.fastq".format(i)))
+             for i, path in enumerate(pe_inputs)]
+
+    def maker(inputs_argv, name):
+        def make_argv(out):
+            report = out + "." + name
+            return ["error"] + inputs_argv + ["-o", report, "--quiet"], report
+        return make_argv
+
+    runs = command_checks("error_path", [
+        maker(["-se", se_input], "se.txt"),
+        maker(["-pe1", paths[0], "-pe2", paths[1]], "pe.txt"),
+    ], work, "serial")
+    records = {}
+    for res, name in zip(runs, ("se", "pe")):
+        rate = res["summary"]["errorrate"]
+        check(all(0 < value < 1 for value in rate["estimate"]), rate)
+        check(list(rate["total_len"]) == [150 * ERROR_RECORDS] * len(rate["estimate"]), rate)
+        records[name] = dict(command_record(res, ERROR_RECORDS, "records"),
+                             estimate=list(rate["estimate"]))
+    return records
+
+
+def _host_intersections(contams, reads):
+    """The intersection matrix by numpy on the host, a contaminant at a
+    time: membership of every read code in the contaminant's set."""
+    live = reads != kmers.SENTINEL
+    out = np.empty((contams.shape[0], reads.shape[0]), np.int64)
+    for row, contam in enumerate(contams):
+        hit = np.isin(reads, contam[contam != kmers.SENTINEL]) & live
+        out[row] = hit.sum(axis=1)
+    return out
+
+
+def phase_kmer_ops(seed, known_input):
+    """The detect command's two k-mer ops on the card against numpy on the
+    same inputs, tolerance 0: the count op at ``KMER_HOLD_CODES`` codes and
+    ``KMER_HOLD_KS``, against ``np.unique``; the intersection op at M x R =
+    256 and at the known path's shape (the bundled contaminants against
+    every read of ``known_input``, forward), against the reference's
+    ``intersection_size`` pair by pair and against ``np.isin``. Each op's
+    time on the card (the call, uploads and fetches included) beside
+    numpy's on the host."""
+    from atropos_tpu_torch.adapters import AdapterCache
+
+    rng = np.random.default_rng([seed, 31])
+    counts = []
+    for k in KMER_HOLD_KS:
+        for size in KMER_HOLD_CODES:
+            pool = rng.integers(0, 5 ** k, max(1, size // 8), dtype=np.int64)
+            flat = pool[rng.integers(0, pool.shape[0], size)]
+            began = time.perf_counter()
+            want = np.unique(flat, return_counts=True)
+            numpy_ms = (time.perf_counter() - began) * 1e3
+            kmers.unique_counts(flat, DEVICE)  # warm: allocator, first launch
+            torch.cuda.synchronize()
+            began = time.perf_counter()
+            got = kmers.unique_counts(flat, DEVICE)
+            card_ms = (time.perf_counter() - began) * 1e3
+            exact = bool(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]))
+            check(exact, ("k-mer count op", k, size))
+            counts.append(dict(k=k, codes=size, distinct=int(want[0].shape[0]),
+                               card_ms=card_ms, numpy_ms=numpy_ms, max_abs_err=0))
+    cache = AdapterCache(None)
+    cache.load_default()
+    contam_sets = [kmers.packed_kmer_set(seq, 12) for seq, _ in cache.iter_sequences()]
+    contam_sets = [arr for arr in contam_sets if arr is not None]
+    with open(known_input) as handle:
+        lines = handle.read().splitlines()
+    read_sets = [arr for arr in (kmers.packed_kmer_set(seq, 12) for seq in lines[1::4])
+                 if arr is not None]
+    intersects = []
+    for name, contams, reads in (("M x R = 256", contam_sets[:16], read_sets[:16]),
+                                 ("the known path's shape", contam_sets, read_sets)):
+        contams_m, reads_m = kmers.padded_rows(contams), kmers.padded_rows(reads)
+        kmers.intersection_counts(contams_m, reads_m, DEVICE)
+        torch.cuda.synchronize()
+        began = time.perf_counter()
+        got = kmers.batch_intersections(contams, reads, DEVICE)
+        card_ms = (time.perf_counter() - began) * 1e3
+        began = time.perf_counter()
+        want = _host_intersections(contams_m, reads_m)
+        isin_ms = (time.perf_counter() - began) * 1e3
+        check(np.array_equal(got, want), ("k-mer intersection op", name))
+        sample = [(int(i), int(j)) for i, j in zip(rng.integers(0, len(contams), 2000),
+                                                   rng.integers(0, len(reads), 2000))]
+        began = time.perf_counter()
+        pairs = [kmers.intersection_size(contams[i], reads[j]) for i, j in sample]
+        pair_ms = (time.perf_counter() - began) * 1e3 / len(sample)
+        check(pairs == [int(got[i, j]) for i, j in sample], ("intersection_size", name))
+        intersects.append(dict(
+            shape=name, contaminants=len(contams), reads=len(reads),
+            widest_read_set=int(reads_m.shape[1]), widest_contaminant=int(contams_m.shape[1]),
+            hits=int(got.sum()), card_ms=card_ms, numpy_isin_ms=isin_ms,
+            intersection_size_ms_a_pair=pair_ms,
+            intersection_size_ms_all_pairs=pair_ms * len(contams) * len(reads),
+            max_abs_err=0,
+        ))
+    return {"count": counts, "intersect": intersects}
 
 
 # -- the dtype probe ---------------------------------------------------------------
@@ -2852,7 +3177,7 @@ def phase_goldens(work):
     for argv, outputs, mode in runs + colorspace:
         argv = argv + ["--quiet", "--no-cache-adapters",
                        "--report-file", os.path.join(work, "report3.txt")]
-        res = run_trim_summary(argv, "cuda")
+        res = run_summary(argv, "cuda")
         check(res["mode"] == mode, (res["mode"], argv))
         modes[mode] = modes.get(mode, 0) + 1
         if "-c" in argv:
@@ -2876,13 +3201,97 @@ def phase_goldens(work):
                       "colorspace_launches": 0, "modes": modes}})
 
 
+# -- the large seeded inputs, written while the kernels build --------------------
+
+#: the near-poly-A pairs of the 2x150 insert path: more insert candidates
+#: than the bundle's slots
+PE_POLY_A = (40000, 43000)
+
+
+def input_writers(work, seed, n_reads):
+    """The card phases' large seeded inputs: tag of the phase that reads
+    it first -> (writer, paths, the key of its rng, the writer's further
+    arguments)."""
+    def paths(*names):
+        return [os.path.join(work, name) for name in names]
+
+    return {
+        "pe_overwrite_path": (partial(write_pairs, low_window=(0.1, 10)),
+                              paths("ow.1.fastq", "ow.2.fastq"), [seed, 10],
+                              (PAIRS, 150, 220, 70)),
+        "main_path": (write_truseq_fastq, paths("reads.fastq"), [seed, 2], (n_reads,)),
+        "pe_insert_path": (write_pairs, paths("pairs150.1.fastq", "pairs150.2.fastq"),
+                           [seed, 6, 150], (PAIRS, 150, 220, 70, PE_POLY_A)),
+        "se_side_path": (write_side_fastq, paths("side.fastq"), [seed, 9], (SIDE_READS,)),
+        "pe_insert_wide_path": (write_pairs, paths("pairs300.1.fastq", "pairs300.2.fastq"),
+                                [seed, 6, 300], (WIDE_PAIRS, 300, 400, 70)),
+        "pe_engine_path": (write_pairs, paths("engine_pairs.1.fastq", "engine_pairs.2.fastq"),
+                           [seed, 16], (ENGINE_PAIRS, 150, 220, 70)),
+        "se_engine_path": (write_side_fastq, paths("engine.fastq"), [seed, 15],
+                           (ENGINE_READS,)),
+    }
+
+
+def write_input(writer, paths, key, args):
+    """One input, in a process of the input pool: (paths, what ``writer``
+    returns, its seconds)."""
+    began = time.perf_counter()
+    made = writer(*paths, np.random.default_rng(key), *args)
+    return paths, made, time.perf_counter() - began
+
+
+def start_inputs(work, seed, n_reads):
+    """Start writing every input of :func:`input_writers`, longest first,
+    in spawned processes, one a host core: they run while the kernels
+    build, before any phase that times the card."""
+    writers = input_writers(work, seed, n_reads)
+    pool = multiprocessing.get_context("spawn").Pool(min(len(writers), os.cpu_count() or 1))
+    pending = {tag: pool.apply_async(write_input, job) for tag, job in writers.items()}
+    return dict(pool=pool, pending=pending, began=time.perf_counter())
+
+
+def finish_inputs(inputs):
+    """Wait for the inputs and stop the pool; print the wall time and each
+    writer's seconds. Returns tag -> (paths, what the writer returned,
+    its seconds)."""
+    try:
+        made = {tag: result.get() for tag, result in inputs["pending"].items()}
+    finally:
+        inputs["pool"].terminate()
+        inputs["pool"].join()
+    emit({"inputs": {
+        "seconds": time.perf_counter() - inputs["began"],
+        "make_input_seconds": {tag: seconds for tag, (_, _, seconds) in made.items()},
+        "bytes": {tag: sum(os.path.getsize(path) for path in paths)
+                  for tag, (paths, _, _) in made.items()},
+    }})
+    return made
+
+
 # -- main --------------------------------------------------------------------------
+
+
+#: the string-hash seed of this script and of the children it spawns: the
+#: detect command names a contaminant's names in the order of a set of
+#: strings, as the reference does (ROADMAP.md queue 3 item 10), so the
+#: card's run and the CPU's check of it must hash strings alike
+HASH_SEED = "0"
+
+
+def with_fixed_hash_seed():
+    """Run this script again in this process under ``HASH_SEED``, unless
+    it already runs under it; the CPU phase's spawned children inherit
+    the seed."""
+    if os.environ.get("PYTHONHASHSEED") != HASH_SEED:
+        os.environ["PYTHONHASHSEED"] = HASH_SEED
+        os.execv(sys.executable, [sys.executable] + sys.argv)
 
 
 def main():
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch.cuda.is_available() is False\n")
         sys.exit(1)
+    with_fixed_hash_seed()
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=20240229)
     parser.add_argument("--reads", type=int, default=2000000,
@@ -2901,14 +3310,17 @@ def main():
     card = timing.smi("name,power.limit")
     emit({"device": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "sm_clock_max": timing.smi("clocks.max.sm")})
-    phase_build()
-    mark("build")
-
     work = tempfile.mkdtemp(prefix="atropos_chip_smoke_")
     cpu = None
+    writing = start_inputs(work, args.seed, args.reads)
     try:
+        try:
+            phase_build()
+        finally:
+            made = finish_inputs(writing)
+        mark("build and inputs")
         word32_launches, fastq = phase_main_path(
-            work, args.seed, args.reads, args.main_path_runs
+            work, made["main_path"], args.reads, args.main_path_runs
         )
         reads, lengths = truseq_batch(fastq)
         truseq = CudaAligner(TRUSEQ, 0.1, BACK, min_overlap=3, device=DEVICE)
@@ -2925,13 +3337,12 @@ def main():
         step["dp_kernel_ms"] = word32_time["ms"]
         step["dp_kernel_queued_ms"] = word32_time["queued_ms"]
         emit({"device_step_at_main_path_shape": step})
-        os.remove(fastq)
         wide_launches, wide_time = phase_long_path(work, args.seed)
 
         # 2x150 pairs: the insert aligner (diag_counts_u8), then the adapter
         # aligner on the same files
         pe, inputs = phase_pe_insert(
-            work, args.seed, PAIRS, 150, 220, diag_counts_u8, poly_a=(40000, 43000),
+            work, made["pe_insert_path"], PAIRS, 150, 220, diag_counts_u8, PE_POLY_A,
         )
         pair, kernel, step_args = pair_step_inputs(inputs, work, 150)
         check(kernel is diag_counts_u8, kernel.name)
@@ -2945,13 +3356,35 @@ def main():
         pe_correct = phase_pe_correct(work, inputs, PAIRS)
         emit({"pe_correct_path": pe_correct})
         mark("pe_correct_path")
+
+        # the qc, detect and error commands on the main path's reads and the
+        # 2x150 pairs: the position counts and the k-mer ops on the card
+        emit({"qc_path": phase_qc(work, fastq, args.reads)})
+        os.remove(fastq)
+        emit({"pe_qc_path": phase_pe_qc(work, inputs, PAIRS)})
+        main_prefix = os.path.join(work, "main_prefix.fastq")
+        emit({"detect_path": phase_detect(
+            work, "detect_path", [main_prefix], DETECT_READS, [], "batches")})
+        emit({"detect_known_path": phase_detect(
+            work, "detect_known_path", [main_prefix], DETECT_KNOWN_READS, ["-i", "known"],
+            "intersect_batches")})
+        emit({"detect_khmer_path": phase_detect(
+            work, "detect_khmer_path", [main_prefix], DETECT_KHMER_READS, ["-d", "khmer"],
+            "batches")})
+        emit({"pe_detect_check": phase_detect(
+            work, "pe_detect_check", inputs, PE_DETECT_PAIRS, ["-i", "known"],
+            "intersect_batches")})
+        emit({"error_path": phase_error(work, main_prefix, inputs)})
+        emit({"kmer_ops": phase_kmer_ops(
+            args.seed, os.path.join(work, "detect_known_path.0.fastq"))})
+        mark("qc, detect and error paths")
         for path in inputs:
             os.remove(path)
-        emit({"pe_overwrite_path": phase_pe_overwrite(work, args.seed, PAIRS)})
+        emit({"pe_overwrite_path": phase_pe_overwrite(work, made["pe_overwrite_path"], PAIRS)})
 
         # 2x300 pairs (MiSeq v3): the window exceeds 255, diag_counts_i32
         wide_pe, wide_inputs = phase_pe_insert(
-            work, args.seed, WIDE_PAIRS, 300, 400, diag_counts_i32, poly_a=(0, 0),
+            work, made["pe_insert_wide_path"], WIDE_PAIRS, 300, 400, diag_counts_i32, (0, 0),
         )
         pair, kernel, step_args = pair_step_inputs(wide_inputs, work, 300)
         check(kernel is diag_counts_i32, kernel.name)
@@ -2961,7 +3394,7 @@ def main():
         i32_time = time_diag(diag_counts_i32, *i32_inputs)
         for path in wide_inputs:
             os.remove(path)
-        emit({"se_side_path": phase_se_side(work, args.seed, SIDE_READS)})
+        emit({"se_side_path": phase_se_side(work, made["se_side_path"], SIDE_READS)})
         mark("turbo paths, second part")
         probe_err, probe_launches, probe_times = phase_dtype_probe(args.seed)
         global_column = phase_global_column(args.seed)
@@ -2969,9 +3402,9 @@ def main():
 
         # the configurations the turbo runner declines: the per-record
         # pipeline, its batched engine on the card
-        se_engine, se_source = phase_se_engine(work, args.seed, ENGINE_READS)
+        se_engine, se_source = phase_se_engine(work, made["se_engine_path"], ENGINE_READS)
         emit({"se_engine_path": se_engine})
-        pe_engine, pe_source = phase_pe_engine(work, args.seed, ENGINE_PAIRS)
+        pe_engine, pe_source = phase_pe_engine(work, made["pe_engine_path"], ENGINE_PAIRS)
         emit({"pe_engine_path": pe_engine})
         insert_check = phase_pe_engine_insert_check(work, args.seed)
         emit({"pe_engine_insert_check": insert_check})

@@ -8,7 +8,9 @@ NVIDIA Hopper card and ``nvcc`` run them with
 ``chip_smoke.py`` makes the same comparisons at full size; these are the
 small, quick form for work on the kernels. They import only the port.
 """
+import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -802,3 +804,83 @@ def test_stats_and_colorspace_on_the_card_equal_the_cpu(card, tmp_path):
     assert sum(cuda_kernel.launch_counts().values()) == 0
     with open(out, "rb") as got, open(os.path.join(EXPECTED, expected), "rb") as want:
         assert got.read() == want.read()
+
+
+@pytest.mark.parametrize("k", [12, 13, 21, 27])
+@pytest.mark.parametrize("size", [1 << 14, (1 << 14) + 1, 1 << 20])
+def test_kmer_count_op_on_the_card_equals_numpy(card, k, size):
+    from atropos_tpu_torch.commands.detect import kmers
+
+    rng = np.random.default_rng(k * 31 + size)
+    pool = rng.integers(0, 5 ** k, max(1, size // 4), dtype=np.int64)
+    flat = pool[rng.integers(0, pool.shape[0], size)]
+    before = kmers.DEVICE_KMER_COUNTS["cuda"]["batches"]
+    got = kmers.unique_counts(flat, card)
+    want = np.unique(flat, return_counts=True)
+    assert kmers.DEVICE_KMER_COUNTS["cuda"]["batches"] == before + 1
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n_contam,n_reads,k", [(16, 16, 12), (151, 500, 12), (40, 64, 27)])
+def test_kmer_intersection_op_on_the_card_equals_numpy(card, n_contam, n_reads, k):
+    from atropos_tpu_torch.commands.detect import kmers
+
+    rng = np.random.default_rng(n_contam * n_reads + k)
+    top = 5 ** k
+    contams = [np.unique(rng.integers(0, top, int(m))) for m in rng.integers(1, 80, n_contam)]
+    reads = [np.unique(np.concatenate([contams[int(rng.integers(n_contam))][:int(m)],
+                                       rng.integers(0, top, 3)]))
+             for m in rng.integers(0, 60, n_reads)]
+    reads[0] = np.empty(0, np.int64)
+    before = kmers.DEVICE_KMER_COUNTS["cuda"]["intersect_batches"]
+    got = kmers.batch_intersections(contams, reads, card)
+    assert kmers.DEVICE_KMER_COUNTS["cuda"]["intersect_batches"] == before + 1
+    want = np.array([[kmers.intersection_size(c, r) for r in reads] for c in contams])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("argv", [
+    ["qc"], ["qc", "--stats", "tiles"], ["error"],
+    ["detect", "--no-cache-contaminants"],
+    ["detect", "-i", "known", "--no-cache-contaminants"],
+    ["detect", "-d", "khmer", "--no-cache-contaminants"],
+], ids=lambda argv: "-".join(argv[:3]))
+def test_qc_detect_error_on_the_card_equal_the_cpu(card, tmp_path, argv):
+    """The commands on the card: the same summary and report as on the
+    CPU, the position counts and the k-mer ops on the card."""
+    from atropos_tpu_torch.commands import get_command, stats
+    from atropos_tpu_torch.commands.detect import kmers
+
+    inp = str(tmp_path / "tiled.fastq")
+    rng = np.random.default_rng(5)
+    with open(_engine_reads(str(tmp_path / "plain.fastq"), 5)) as src, open(inp, "w") as out:
+        for i, line in enumerate(src):
+            if i % 4 == 0:
+                line = "@A0:1:FC:1:{}:{}:{}\n".format(1101 + int(rng.integers(0, 5)), i, i)
+            out.write(line)
+    results = {}
+    for device in ("cuda", "cpu"):
+        before = (dict(stats.DEVICE_STATS_COUNTS), json_counts(kmers.DEVICE_KMER_COUNTS))
+        # one report path for both runs: the summary holds it
+        report = str(tmp_path / "report.txt")
+        rc, summary = get_command(argv[0]).execute(
+            argv[1:] + ["-se", inp, "--max-reads", "2000", "-o", report, "--quiet"],
+            device=device)
+        assert rc == 0 and "exception" not in summary
+        after = (dict(stats.DEVICE_STATS_COUNTS), json_counts(kmers.DEVICE_KMER_COUNTS))
+        if argv[0] == "qc":
+            assert after[0][device] > before[0][device]
+        if argv[0] == "detect" and "khmer" not in argv:
+            assert after[1] != before[1] and after[1][device] != before[1][device]
+        with open(report) as handle:
+            lines = [line for line in handle
+                     if not re.search("Command line|Start time|Wallclock|CPU time", line)]
+        summary = {key: value for key, value in summary.items()
+                   if key not in ("timing", "device")}
+        results[device] = (lines, json.dumps(summary, sort_keys=True, default=str))
+    assert results["cuda"] == results["cpu"]
+
+
+def json_counts(counts):
+    return {device: dict(kinds) for device, kinds in counts.items()}

@@ -147,36 +147,49 @@ def test_probe_compare_names_its_runs():
 
 
 #: the paths whose output ``chip_smoke.py`` makes on the card, and the
-#: records of their input each ``--device cpu`` check ran before the checks
-#: moved into one phase (65,536 reads of the main path; (DEPTH + 2) x
-#: MAX_BATCH = 163,840 pairs or records of the paired and side paths) or
-#: that the engine paths run (65,536 records; the whole 2,048 pairs of the
-#: insert check)
+#: records of their input each ``--device cpu`` check runs: (DEPTH + 2) x
+#: MAX_BATCH = 163,840 reads of the main path and pairs of the insert path,
+#: whose prefixes reach the batches that reuse pinned slots; two batches,
+#: 65,536 pairs or records, of the other paired and side paths; 32,768
+#: records of the engine paths; the whole 2,048 pairs of the insert check
 CPU_CHECKS = {
-    "main_path": 65536, "pe_insert_path": 163840, "pe_adapter_path": 163840,
-    "pe_side_path": 163840, "pe_overwrite_path": 163840, "pe_insert_wide_path": 163840,
-    "se_side_path": 163840, "se_engine_path": 65536, "pe_engine_path": 65536,
-    "pe_engine_insert_check": 2048, "pe_correct_path": 163840, "se_sam_engine_path": 65536,
-    "pe_sam_engine_path": 65536, "se_fastaqual_engine_path": 65536,
+    "main_path": 163840, "pe_insert_path": 163840, "pe_adapter_path": 65536,
+    "pe_side_path": 65536, "pe_overwrite_path": 65536, "pe_insert_wide_path": 65536,
+    "se_side_path": 65536, "se_engine_path": 32768, "pe_engine_path": 32768,
+    "pe_engine_insert_check": 2048, "pe_correct_path": 65536, "se_sam_engine_path": 32768,
+    "pe_sam_engine_path": 32768, "se_fastaqual_engine_path": 32768,
     "se_stats_serial_check": 8192,
+    # the qc, detect and error commands: qc on 65,536 reads of the main
+    # path's CPU prefix and on the paired prefix, detect and error on every
+    # record of their inputs
+    "qc_path": 65536, "pe_qc_path": 65536, "detect_path": 1000, "detect_known_path": 4000,
+    "detect_khmer_path": 10000, "pe_detect_check": 2000, "error_path": 10000,
 }
 
 
 def _deferred_tags():
     """The path tags ``chip_smoke.py``'s phases hand to the CPU phase: the
     string arguments of every ``defer_cpu``, ``defer_pair_check`` and
-    ``prefix_checks`` call, and the tags chosen beside such a call."""
+    ``prefix_checks`` call, the tag argument of every ``command_checks``
+    call and of ``main``'s calls of ``phase_detect``, and the tags chosen
+    beside such a call."""
     import ast
 
     tree = ast.parse(_read(ROOT, "chip_smoke.py"))
     tags = []
     for node in ast.walk(tree):
-        if isinstance(node, ast.FunctionDef) and node.name.startswith("phase_"):
+        if isinstance(node, ast.FunctionDef) and (
+            node.name.startswith("phase_") or node.name == "main"
+        ):
             for sub in ast.walk(node):
-                if isinstance(sub, ast.Call) and getattr(sub.func, "id", None) in (
-                    "defer_cpu", "defer_pair_check", "prefix_checks"
+                name = getattr(sub, "func", None) and getattr(sub.func, "id", None)
+                if isinstance(sub, ast.Call) and name in (
+                    "defer_cpu", "defer_pair_check", "prefix_checks", "command_checks",
+                    "phase_detect",
                 ):
-                    tags += [a.value for a in sub.args
+                    args = {"phase_detect": sub.args[1:2],
+                            "command_checks": sub.args[:1]}.get(name, sub.args)
+                    tags += [a.value for a in args
                              if isinstance(a, ast.Constant) and isinstance(a.value, str)]
                 elif isinstance(sub, ast.Assign) and any(
                     getattr(t, "id", None) == "tag" for t in sub.targets
@@ -197,6 +210,7 @@ def test_every_card_path_has_one_cpu_check_of_its_records():
 
 @pytest.mark.parametrize("jobs,cores,children,threads", [
     (15, 8, 6, [2] + [1] * 14),   # the card's machine: 8 cores, one for the card
+    (22, 8, 6, [2] + [1] * 21),
     (10, 8, 6, [2] + [1] * 9),
     (3, 8, 3, [3, 2, 2]),
     (1, 8, 1, [7]),
@@ -226,7 +240,7 @@ def test_cpu_checks_run_only_in_the_cpu_phase(tmp_path, monkeypatch):
     out = str(tmp_path / "cpu.fastq")
     argv = ["trim", "-b", "TTAGACATATCTCCGTCG", "-se", datapath("small.fastq"), "-o", out,
             "--quiet", "--no-cache-adapters", "--report-file", str(tmp_path / "report.txt")]
-    for run in (chip_smoke.run_trim, chip_smoke.run_trim_summary):
+    for run in (chip_smoke.run_trim, chip_smoke.run_summary):
         with pytest.raises(AssertionError):
             run(argv, "cpu")
     assert not os.path.exists(out)

@@ -74,6 +74,11 @@ def test_sources_exist():
         "atropos_tpu_torch/align/batched.py",
         "atropos_tpu_torch/commands/trim/modifiers/paired.py",
         "atropos_tpu_torch/commands/stats.py",
+        "atropos_tpu_torch/commands/qc/__init__.py",
+        "atropos_tpu_torch/commands/error/__init__.py",
+        "atropos_tpu_torch/commands/detect/__init__.py",
+        "atropos_tpu_torch/commands/detect/kmers.py",
+        "atropos_tpu_torch/io/progress.py",
         "atropos_tpu_torch/csrc/dp_align.cu",
         "atropos_tpu_torch/csrc/diag_counts.cu",
         "atropos_tpu_torch/csrc/dtype_probe.cu",
@@ -106,17 +111,24 @@ ENVIRON = re.compile(r"environ|getenv")
 
 def test_no_environment_switch():
     """No environment variable selects a path: the only one the port reads
-    is ``CUDA_HOME``, where ``nvcc`` may live."""
+    is ``CUDA_HOME``, where ``nvcc`` may live. ``chip_smoke.py`` fixes
+    ``PYTHONHASHSEED`` for itself and its children, so that its card runs
+    and their CPU checks order sets of strings alike; that selects no
+    path."""
     found = []
     for path in _sources():
         with open(path) as handle:
             for line in handle:
                 if ENVIRON.search(line):
                     found.append((os.path.relpath(path, ROOT), line.strip()))
-    assert found == [(
-        "atropos_tpu_torch/align/_build.py",
-        'for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):',
-    )]
+    assert found == [
+        (
+            "atropos_tpu_torch/align/_build.py",
+            'for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):',
+        ),
+        ("chip_smoke.py", 'if os.environ.get("PYTHONHASHSEED") != HASH_SEED:'),
+        ("chip_smoke.py", 'os.environ["PYTHONHASHSEED"] = HASH_SEED'),
+    ]
 
 
 #: calls that build or launch a kernel, or run a device step
@@ -124,7 +136,8 @@ LAUNCHING = {
     "_lib", "build", "load", "_step", "_dispatch", "_core", "_planes", "submit",
     "kernel", "aligner", "dp_locate_word32", "dp_locate_wide", "diag_counts_u8",
     "diag_counts_i32", "kernel_for", "dtype_probe_i32", "dtype_probe_i16x2",
-    "position_byte_counts", "add_batch", "collect_matrices",
+    "position_byte_counts", "add_batch", "collect_matrices", "collect_batch",
+    "unique_counts", "intersection_counts", "count_corpus", "batch_intersections",
 }
 
 
@@ -146,6 +159,7 @@ def _called_names(node):
             "/align/" in p or "/engine/" in p or "/tools/" in p
             or "/cuda_tools/" in p
             or p.endswith("/commands/stats.py")
+            or "/commands/qc/" in p or "/commands/detect/" in p
         )
     ],
     ids=lambda p: os.path.relpath(p, ROOT),
@@ -185,6 +199,22 @@ sys.exit(rc)
     assert done.returncode == 0, done.stderr
     with open(out) as got, open(cutpath("small.fastq")) as expected:
         assert got.read() == expected.read()
+
+
+@pytest.mark.parametrize("command", ["qc", "detect", "error"])
+def test_other_commands_run_with_jax_and_the_reference_package_blocked(command, tmp_path):
+    done = _run(
+        r'''
+from atropos_tpu_torch.__main__ import main
+rc = main(sys.argv[1:], device="cpu")
+loaded = sorted(n for n in sys.modules if n.split(".")[0] in Refuse.BLOCKED)
+assert not loaded, loaded
+sys.exit(rc)
+''',
+        *_command_argv(command, tmp_path),
+    )
+    assert done.returncode == 0, done.stderr
+    assert os.path.getsize(str(tmp_path / "out.txt")) > 0
 
 
 def test_paired_insert_trim_runs_with_jax_and_the_reference_package_blocked(tmp_path):
@@ -385,14 +415,51 @@ def test_lane_and_aligner_take_the_device_explicitly():
     }
 
 
+def _command_argv(command, tmp_path):
+    argv = [command, "-se", datapath("small.fastq"), "-o", str(tmp_path / "out.txt"),
+            "--quiet"]
+    return argv + (["--no-cache-contaminants"] if command == "detect" else [])
+
+
 @pytest.mark.parametrize("command", ["qc", "detect", "error"])
-def test_other_commands_are_not_ported(command):
+def test_other_commands_run_on_the_device_asked(command, tmp_path):
+    from atropos_tpu_torch.commands import get_command
+
+    retcode, summary = get_command(command).execute(
+        _command_argv(command, tmp_path)[1:], device="cpu")
+    assert retcode == 0 and "exception" not in summary
+    assert summary["device"] == "cpu"
+    assert os.path.exists(str(tmp_path / "out.txt"))
+
+
+@pytest.mark.parametrize("command", ["qc", "detect", "error"])
+def test_other_commands_without_a_card_raise(command, tmp_path):
+    """With no device asked the commands run on ``cuda``; without a card
+    they raise before anything is written, also ``error``, which has no
+    device work."""
+    import torch
+
+    from atropos_tpu_torch import DeviceUnavailableError
+    from atropos_tpu_torch.__main__ import main
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the command would run on it")
+    with pytest.raises(DeviceUnavailableError):
+        main(_command_argv(command, tmp_path))
+    with pytest.raises(DeviceUnavailableError):
+        main(_command_argv(command, tmp_path) + ["--device", "cuda"])
+    assert not os.path.exists(str(tmp_path / "out.txt"))
+
+
+def test_qc_threads_is_not_ported(tmp_path):
     from atropos_tpu_torch import NotPortedError
     from atropos_tpu_torch.__main__ import main
 
     with pytest.raises(NotPortedError) as err:
-        main([command, "-se", datapath("small.fastq")], device="cpu")
-    assert "ROADMAP.md queue 1 item 6" in str(err.value)
+        main(_command_argv("qc", tmp_path) + ["--threads", "2"], device="cpu")
+    assert err.value.topic == "multi-gpu"
+    assert "ROADMAP.md queue 1 item 7" in str(err.value)
+    assert not os.path.exists(str(tmp_path / "out.txt"))
 
 
 #: configurations of the single-end and paired-end slices that the turbo
