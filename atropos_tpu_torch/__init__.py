@@ -16,7 +16,8 @@ Modules carry the names of their ``atropos_tpu`` counterparts:
 - ``atropos_tpu_torch.adapters``  — adapter parsing/matching/caching
 - ``atropos_tpu_torch.runtime``   — native FASTQ/FASTA parser, packer, formatter
 - ``atropos_tpu_torch.engine``    — the turbo single-end and paired-end runners and their device steps, and the batched TrimEngine of the per-record pipeline
-- ``atropos_tpu_torch.commands``  — the trim command (turbo and per-record pipeline), the qc, detect and error commands, CLI, reports, read statistics
+- ``atropos_tpu_torch.commands``  — the trim command (turbo, per-record pipeline, ``--threads`` workers), the qc, detect and error commands, CLI, reports, read statistics
+- ``atropos_tpu_torch.parallel``  — multi-process ranks over ``torch.distributed``
 - ``atropos_tpu_torch.tools``     — measurement tools (the dtype probe of the DP column body)
 
 The package imports ``torch`` and ``numpy`` only. Every entry point takes
@@ -38,7 +39,7 @@ class AtroposError(Exception):
 ROADMAP_ITEMS = {
     "device-quality": "queue 1 item 5 (device quality-trimming kernels)",
     "multi-gpu": (
-        "queue 1 item 7 (multi-GPU, multi-host and --threads execution)"
+        "queue 1 item 7a (the split of one device batch over a host's cards)"
     ),
 }
 

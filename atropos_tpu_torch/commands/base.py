@@ -2,11 +2,13 @@
 record batcher every command runner is built on.
 
 Records stream off a reader and are grouped into fixed-size batches (the
-unit of work the batched engine encodes into arrays for the device).
+unit of work the batched engine encodes into arrays for the device, and
+the unit the parallel modes ship between processes).
 Summaries are merge-capable dict trees that collapse to plain data at the
-end of a run. Counterpart of ``atropos_tpu/commands/base.py`` for one
-process on one device: the multi-host sharding of the batches is not part
-of this package; ``--progress`` wraps the batch iterator as there.
+end of a run. Counterpart of ``atropos_tpu/commands/base.py``: with more
+than one rank (:mod:`atropos_tpu_torch.parallel.distributed`) each rank's
+batcher yields only the batches it owns; ``--progress`` wraps the batch
+iterator as there.
 """
 import platform
 import sys
@@ -160,6 +162,10 @@ class BaseCommandRunner:
         self.size = options.batch_size or 1000
         self.batches = 0
         self.done = False
+        # multi-process sharding (atropos_tpu_torch.parallel.distributed):
+        # with shard_count > 1 this rank only yields the batches it owns
+        self.shard_rank = 0
+        self.shard_count = 1
         self.reader = self._open_input(options)
 
         source = iter(self.reader)
@@ -274,7 +280,8 @@ class BaseCommandRunner:
                         self.finish()
                     batch = self._assemble(pending)
                     pending = []
-                    yield batch
+                    if batch is not None:
+                        yield batch
                     if hit_quota:
                         return
         except BaseException:
@@ -282,11 +289,17 @@ class BaseCommandRunner:
             raise
         self.finish()
         if pending:
-            yield self._assemble(pending)
+            batch = self._assemble(pending)
+            if batch is not None:
+                yield batch
 
     def _assemble(self, records):
-        """Number the batch."""
+        """Number the batch; None when another rank owns it."""
         self.batches += 1
+        if self.shard_count > 1 and (
+            (self.batches - 1) % self.shard_count != self.shard_rank
+        ):
+            return None
         meta = dict(index=self.batches, source=0, size=len(records))
         return (meta, list(records))
 

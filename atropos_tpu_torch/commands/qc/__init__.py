@@ -1,7 +1,7 @@
 """The 'qc' command: FastQC-style read statistics.
 
-Counterpart of ``atropos_tpu/commands/qc/__init__.py`` for one process on
-one device. Two routes, as there:
+Counterpart of ``atropos_tpu/commands/qc/__init__.py``. Three routes, as
+there:
 
 - **native** (summary ``mode`` "turbo"): the native runtime parses chunks
   of FASTQ/FASTA files, gathers padded byte matrices and hands them to
@@ -9,22 +9,23 @@ one device. Two routes, as there:
   no record objects anywhere;
 - **serial**: the record pipeline for what the native route declines
   (colorspace, SRA, ``--subsample``, interleaved input, per-tile tables,
-  streams), a batch of records at a time.
+  streams), a batch of records at a time;
+- **parallel** (``--threads``): the record pipeline in spawned workers
+  (:mod:`atropos_tpu_torch.commands.multicore`), whose summaries merge.
 
-On both, the per-position byte counts run on the run's device
-(:func:`~atropos_tpu_torch.commands.stats.position_byte_counts`). The
-forked-parallel mode (``--threads``) raises
-:class:`~atropos_tpu_torch.NotPortedError`.
+On all three, the per-position byte counts run on the run's device
+(:func:`~atropos_tpu_torch.commands.stats.position_byte_counts`); a
+worker gets the device as its string.
 """
 import numpy as np
 
-from atropos_tpu_torch import NotPortedError
 from atropos_tpu_torch.commands.base import (
     BaseCommandRunner,
     PairedEndPipelineMixin,
     Pipeline,
     SingleEndPipelineMixin,
 )
+from atropos_tpu_torch.commands.multicore import ParallelPipelineMixin
 from atropos_tpu_torch.commands.stats import (
     PairedEndReadStatistics,
     SingleEndReadStatistics,
@@ -73,6 +74,14 @@ class PairedEndQcPipeline(PairedEndPipelineMixin, QcPipeline):
     statistics_class = PairedEndReadStatistics
 
 
+class ParallelSingleEndQcPipeline(ParallelPipelineMixin, SingleEndQcPipeline):
+    """Module-level (spawned workers pickle pipelines by qualified name)."""
+
+
+class ParallelPairedEndQcPipeline(ParallelPipelineMixin, PairedEndQcPipeline):
+    """Module-level (spawned workers pickle pipelines by qualified name)."""
+
+
 def _gather(chunk, sub, offsets):
     """The padded ``[n, W]`` uint8 matrix of one field (sequences or
     qualities at ``offsets``) of the records ``sub`` of a parsed chunk,
@@ -105,11 +114,6 @@ class CommandRunner(BaseCommandRunner):
     #: records a statistics call takes at most
     SLICE_RECORDS = 65536
 
-    def __init__(self, options):
-        if options.threads is not None:
-            raise NotPortedError("--threads", "multi-gpu")
-        super().__init__(options)
-
     def __call__(self):
         pipeline_class = (
             PairedEndQcPipeline if self.paired else SingleEndQcPipeline
@@ -121,11 +125,14 @@ class CommandRunner(BaseCommandRunner):
             pipeline_args.update(self.stats)
         pipeline_args["device"] = self.options.device
 
-        retcode = self._run_native(pipeline_args)
-        if retcode is not None:
-            return retcode
-        self.summary.update(mode="serial", threads=1)
-        return run_interruptible(pipeline_class(**pipeline_args), self)
+        if self.threads is None:
+            retcode = self._run_native(pipeline_args)
+            if retcode is not None:
+                return retcode
+            self.summary.update(mode="serial", threads=1)
+            return run_interruptible(pipeline_class(**pipeline_args), self)
+        self.summary.update(mode="parallel", threads=self.threads)
+        return self._run_parallel(pipeline_class, pipeline_args)
 
     def _run_native(self, pipeline_args):
         """The native-chunk route: parse chunks with the native runtime and
@@ -278,3 +285,23 @@ class CommandRunner(BaseCommandRunner):
             )
         self.summary["pre"] = {0: stats.summarize()}
         return 0
+
+    def _run_parallel(self, pipeline_class, pipeline_args):
+        """Spawn worker processes, each running the same pipeline over its
+        share of batches; summaries (count tables add) merge at the end."""
+        import logging
+
+        from atropos_tpu_torch.commands.multicore import ParallelPipelineRunner
+
+        parallel_class = (
+            ParallelPairedEndQcPipeline
+            if pipeline_class is PairedEndQcPipeline
+            else ParallelSingleEndQcPipeline
+        )
+        runner = ParallelPipelineRunner(self, parallel_class(**pipeline_args))
+        logging.getLogger().debug(
+            "Starting atropos qc in parallel mode with threads=%d, timeout=%d",
+            runner.threads,
+            runner.timeout,
+        )
+        return runner.run()

@@ -7,18 +7,24 @@ report, the ``--stats`` wrapper that holds the pre- and post-trim
 statistics tables the runner fills from its batch matrices, and the
 summary class that derives the fraction/total fields.
 
-The configurations the turbo runner declines run through the pipeline
-here: a batch flows through the modifier chain (whole-batch through the
-batched engine, :class:`~atropos_tpu_torch.engine.TrimEngine`, or per
-record where the engine declines too) -> filter routing -> formatting
-into a per-batch ``{path: [str]}`` result dict -> a WriterResultHandler
-that writes it. Counterpart of ``atropos_tpu/commands/trim/pipeline.py`` for
-one process; its parallel pipelines and the order-preserving writer of
-``--threads`` are not part of this package.
+The configurations the turbo runner declines, and the workers of
+``--threads``, run through the pipeline here: a batch flows through the
+modifier chain (whole-batch through the batched engine,
+:class:`~atropos_tpu_torch.engine.TrimEngine`, or per record where the
+engine declines too, and always in a ``--threads`` worker) -> filter
+routing -> formatting into a per-batch ``{path: [str]}`` result dict ->
+a ResultHandler that delivers it (write directly, or enqueue toward a
+writer process in parallel mode). Counterpart of
+``atropos_tpu/commands/trim/pipeline.py``.
 """
 from collections import defaultdict
 from collections.abc import Sequence
 
+from atropos_tpu_torch.commands.multicore import (
+    MulticoreError,
+    ParallelPipelineMixin,
+    PendingQueue,
+)
 from atropos_tpu_torch.commands.base import (
     PairedEndPipelineMixin,
     Pipeline,
@@ -142,19 +148,65 @@ PER_RECORD_COUNTS = {"records": 0}
 # -- result delivery -------------------------------------------------------------
 
 
-class WriterResultHandler:
-    """Joins each output's strings of a batch's result dict and writes
-    them through a Writers object; closes the writers at the end."""
+class ResultHandler:
+    """Sink for per-batch result dicts."""
 
-    def __init__(self, writers):
-        self.writers = writers
+    def start(self, worker=None):
+        pass
 
-    def write_result(self, result):
-        self.writers.write_result(
-            {path: "".join(strings) for path, strings in result.items()}
+    def finish(self, total_batches=None):
+        pass
+
+    def write_result(self, batch_num, result):
+        raise NotImplementedError()
+
+
+class ResultHandlerWrapper(ResultHandler):
+    def __init__(self, handler):
+        self.handler = handler
+
+    def start(self, worker):
+        self.handler.start(worker)
+
+    def write_result(self, batch_num, result):
+        self.handler.write_result(batch_num, result)
+
+    def finish(self, total_batches=None):
+        self.handler.finish(total_batches=total_batches)
+
+
+class WorkerResultHandler(ResultHandlerWrapper):
+    """Joins each output's strings into one blob before forwarding
+    (subclasses add compression here in parallel-worker mode)."""
+
+    def write_result(self, batch_num, result):
+        self.handler.write_result(
+            batch_num,
+            dict(self.prepare_file(*item) for item in result.items()),
         )
 
-    def finish(self):
+    def prepare_file(self, path, strings):
+        return (path, "".join(strings))
+
+
+class WriterResultHandler(ResultHandler):
+    """Terminal handler: hands results to a Writers object."""
+
+    def __init__(self, writers, compressed=False, use_suffix=False):
+        self.writers = writers
+        self.compressed = compressed
+        self.use_suffix = use_suffix
+
+    def start(self, worker=None):
+        if self.use_suffix:
+            if worker is None:
+                raise ValueError("worker must not be None")
+            self.writers.suffix = ".{}".format(worker.index)
+
+    def write_result(self, batch_num, result):
+        self.writers.write_result(result, self.compressed)
+
+    def finish(self, total_batches=None):
         self.writers.close()
 
 
@@ -175,6 +227,9 @@ class TrimPipeline(Pipeline):
         self.result_handler = result_handler
         self.engine = engine
 
+    def start(self, worker=None):
+        self.result_handler.start(worker)
+
     def add_to_context(self, context):
         context["results"] = defaultdict(list)
 
@@ -185,7 +240,7 @@ class TrimPipeline(Pipeline):
         else:
             self._handle_batch_on_engine(context, records)
         self.record_handler.finish_batch()
-        self.result_handler.write_result(context["results"])
+        self.result_handler.write_result(context["index"], context["results"])
 
     def _handle_batch_on_engine(self, context, records):
         handler = self.record_handler
@@ -253,3 +308,52 @@ class TrimSummary(Summary):
                 node["fraction_total_" + key] = self._ratio(total, whole)
             else:
                 node["fraction_" + key] = self._ratio(value, whole)
+
+
+class ParallelSingleEndTrimPipeline(ParallelPipelineMixin, SingleEndTrimPipeline):
+    """Module-level (spawned workers pickle pipelines by qualified name)."""
+
+
+class ParallelPairedEndTrimPipeline(ParallelPipelineMixin, PairedEndTrimPipeline):
+    """Module-level (spawned workers pickle pipelines by qualified name)."""
+
+
+class OrderPreservingWriterResultHandler(WriterResultHandler):
+    """Buffers out-of-order batches, flushing in input order."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.pending = None
+        self.cur_batch = None
+
+    def start(self, worker=None):
+        super().start(worker)
+        self.pending = PendingQueue()
+        self.cur_batch = 1
+
+    def write_result(self, batch_num, result):
+        if batch_num != self.cur_batch:
+            self.pending.push(batch_num, result)
+            return
+        self.writers.write_result(result, self.compressed)
+        self.cur_batch += 1
+        self.consume_pending()
+
+    def consume_pending(self):
+        while not self.pending.empty and (
+            self.cur_batch == self.pending.min_priority
+        ):
+            self.writers.write_result(self.pending.pop(), self.compressed)
+            self.cur_batch += 1
+
+    def finish(self, total_batches=None):
+        if total_batches is not None:
+            self.consume_pending()
+            if self.cur_batch != total_batches + 1:
+                raise MulticoreError(
+                    "OrderPreservingWriterResultHandler finishing "
+                    "without having seen {} of {} batches".format(
+                        total_batches + 1 - self.cur_batch, total_batches
+                    )
+                )
+        super().finish(total_batches=total_batches)

@@ -54,7 +54,10 @@ bytes patched into the native formatter's output) run on the runners as
 in ``atropos_tpu``. What the turbo runners decline (``build`` returns
 None) runs through the per-record pipeline and its batched engine
 (:mod:`atropos_tpu_torch.engine`), as in ``atropos_tpu``; the sharded
-mesh and the device quality kernels are not part of this package.
+mesh and the device quality kernels are not part of this package. Under
+more than one rank (:mod:`atropos_tpu_torch.parallel.distributed`) each
+runner trims the chunks (single-end) or pair batches (paired-end) whose
+index modulo the world size is its rank, into its ``.{rank}`` shard.
 
 Output is byte-identical to ``atropos_tpu``; all summary statistics
 (per-adapter histograms, trimmed-bp counters, filter counts) are
@@ -110,6 +113,7 @@ from atropos_tpu_torch.commands.trim.writers import (
     InfoFormatter,
     RestFormatter,
     WildcardFormatter,
+    add_suffix_to_path,
 )
 from atropos_tpu_torch.engine import _PrefixSuffixMatcher, make_batch_aligner
 from atropos_tpu_torch.io import xopen
@@ -128,8 +132,9 @@ from atropos_tpu_torch.util import BASE_COMPLEMENTS, truncate_string
 _UPPER_LUT = None
 
 #: telemetry of the last :meth:`TurboTrimRunner.run` or
-#: :meth:`TurboPairedRunner.run`: reads (pairs), batches, wall seconds and
-#: where the main thread and its helper threads spent them
+#: :meth:`TurboPairedRunner.run`: reads (pairs), the (index, records) of
+#: each chunk (pair batch) this rank owned, batches, wall seconds and where
+#: the main thread and its helper threads spent them
 LAST_RUN = {}
 
 #: telemetry: pairs whose insert-candidate stream exceeded the bundle's
@@ -2574,12 +2579,17 @@ class _TurboRunnerBase:
 
     def _open_output(self, path):
         """Binary output handle (bytes from the native formatter go
-        straight through — no text-codec round trip). Registers with the
-        Writers container so close/force-create bookkeeping stays
-        unified."""
+        straight through — no text-codec round trip). Honors the Writers
+        shard suffix (multi-process ranks) and registers with the
+        container so close/force-create bookkeeping stays unified."""
         handle = self.writers.writers.get(path)
         if handle is None:
-            handle = xopen(path, "wb")
+            physical = (
+                add_suffix_to_path(path, self.writers.suffix)
+                if self.writers.suffix
+                else path
+            )
+            handle = xopen(physical, "wb")
             self.writers.writers[path] = handle
         return handle
 
@@ -2859,8 +2869,15 @@ class TurboTrimRunner(_TurboRunnerBase):
         total_bp = 0
         batches = 0
         inflight = collections.deque()
-        # --max-reads caps the record stream (scalar batcher semantics:
-        # the first N records of the input)
+        # multi-process sharding: chunk boundaries are deterministic (same
+        # file, same chunking), so round-robin chunk ownership partitions
+        # the records exactly once across ranks
+        shard_rank = getattr(self.command_runner, "shard_rank", 0)
+        shard_count = getattr(self.command_runner, "shard_count", 1)
+        chunk_index = 0
+        owned = []  # (chunk index, records) of the chunks this rank trims
+        # --max-reads caps the GLOBAL record stream (scalar batcher
+        # semantics: the first N records of the input)
         quota = int_or_str(options.max_reads) or None
         seen = 0
         source = _ChunkStream(options.input1, self.CHUNK_BYTES, self._in_fmt)
@@ -2881,14 +2898,17 @@ class TurboTrimRunner(_TurboRunnerBase):
                     if avail <= 0:
                         break
                 seen += avail
-                total_records += avail
-                total_bp += int(chunk.seq_len[:avail].sum())
-                for start in range(0, avail, self.MAX_BATCH):
-                    sub = slice(start, min(start + self.MAX_BATCH, avail))
-                    inflight.append(self.lane.submit(chunk, sub))
-                    batches += 1
-                    while len(inflight) >= self.DEPTH:
-                        self._resolve(inflight.popleft())
+                if chunk_index % shard_count == shard_rank:
+                    owned.append((chunk_index, avail))
+                    total_records += avail
+                    total_bp += int(chunk.seq_len[:avail].sum())
+                    for start in range(0, avail, self.MAX_BATCH):
+                        sub = slice(start, min(start + self.MAX_BATCH, avail))
+                        inflight.append(self.lane.submit(chunk, sub))
+                        batches += 1
+                        while len(inflight) >= self.DEPTH:
+                            self._resolve(inflight.popleft())
+                chunk_index += 1
         finally:
             stream.close()
         while inflight:
@@ -2902,6 +2922,7 @@ class TurboTrimRunner(_TurboRunnerBase):
         LAST_RUN.update(
             device=str(self.lane.device),
             reads=total_records,
+            owned=owned,
             batches=batches,
             device_batches=self.lane.device_batches,
             device_aligners=len(self.lane._aligners),
@@ -3169,6 +3190,10 @@ class TurboPairedRunner(_TurboRunnerBase):
         self._bp = [0, 0]
         self._batches = 0
         self._inflight = collections.deque()
+        self._shard_rank = getattr(self.command_runner, "shard_rank", 0)
+        self._shard_count = getattr(self.command_runner, "shard_count", 1)
+        self._batch_index = 0
+        self._owned = []  # (batch index, pairs) of the batches this rank trims
         self._writer = _AsyncWriter()
         self._resolve_seconds = 0.0
         self._chunk_wait = 0.0
@@ -3202,6 +3227,7 @@ class TurboPairedRunner(_TurboRunnerBase):
         LAST_RUN.update(
             device=str(self.lane1.device),
             pairs=self._total_pairs,
+            owned=self._owned,
             batches=self._batches,
             aligner="insert" if insert is not None else "adapter",
             device_batches=device_batches,
@@ -3232,8 +3258,14 @@ class TurboPairedRunner(_TurboRunnerBase):
         return chunk
 
     def _submit_pair(self, chunk1, sub1, chunk2, sub2):
-        """Submit one pair batch; drain the pipeline window."""
+        """Submit one pair batch if this rank owns it; drain the pipeline
+        window."""
+        owned = self._batch_index % self._shard_count == self._shard_rank
+        self._batch_index += 1
+        if not owned:
+            return
         lens1 = chunk1.seq_len[sub1]
+        self._owned.append((self._batch_index - 1, lens1.shape[0]))
         self._total_pairs += lens1.shape[0]
         self._bp[0] += int(lens1.sum())
         self._bp[1] += int(chunk2.seq_len[sub2].sum())

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Start the port on the GPU: build, check and time its kernels, and drive
 its single-end and paired-end paths end to end, through the turbo runners
-and through the per-record pipeline with its batched engine, and its qc,
-detect and error commands.
+and through the per-record pipeline with its batched engine, in two ranks
+on the card and in ``--threads`` workers, and its qc, detect and error
+commands.
 
 Run from the root of a checkout, with one NVIDIA Hopper card:
 
@@ -44,6 +45,15 @@ object a line:
 5. ``main_path``  a seeded FASTQ of 2,000,000 reads of 150 bases through
                 ``python -m atropos_tpu_torch trim -a TRUSEQ -se IN -o OUT`` on
                 ``cuda``; this path launches ``dp_locate_word32``
+5a. ``ranks_se_path``  the main path's command line in two ranks on the one
+                card (spawned processes joined by ``torch.distributed`` over
+                Gloo on localhost, each passing ``cuda:0`` to the entry
+                point): each rank trims the 64 MiB chunks it owns into its
+                ``.{rank}`` shard with ``dp_locate_word32``; the shards'
+                records disjoint, laid out in chunk order the main path's
+                output byte for byte, rank 0's report of the merged
+                summaries the main path's from its trimming section on; each
+                rank's seconds, reads/s and launches
 6. ``long_path``  a seeded FASTA of 8-kilobase reads against an 880-base
                 vector at 30 % errors through the same entry point; the cell
                 of this shape needs more than 32 bits, so this path launches
@@ -61,6 +71,11 @@ object a line:
 10. ``pe_side_path``  the 2x150 pairs with ``--aligner insert --stats both
                 --info-file -r``: the statistics' position counts run on the
                 card; ``diag_counts_u8`` launches
+10a. ``ranks_pe_path``  ``pe_insert_path``'s command line on its first
+                ``RANK_PAIRS`` pairs (cut from 1,000,000), once in this
+                process and once in two ranks, which own alternate pair
+                batches and launch ``diag_counts_u8``: both mates' shards and
+                the merged report against the one-process run's
 11. ``pe_overwrite_path``  1,000,000 new pairs of 2x150, a tenth of them
                 with one mate's 5' window at quality 2 and the other's at 35,
                 through ``--aligner adapter -w 10,30,10``
@@ -129,6 +144,17 @@ object a line:
                 ``pe_insert_path``
 27. ``error_path``  ``error -se`` and ``error -pe1 -pe2`` at the default
                 ``--max-reads`` of 10,000 (host work, as in the reference)
+27a. ``threads_path``  ``trim --threads 3`` (the writer process,
+                ``--no-writer-process``, ``--preserve-order``) and ``qc
+                --threads 2`` in ``QC_THREADS_BATCHES`` batches) on
+                ``THREADS_READS`` reads of the main path, the four at once
+                through ``python -m atropos_tpu_torch``: spawned workers on
+                the per-record pipeline without an engine. Host only for
+                trim (no kernel, no device op); qc's workers count
+                positions on the card. The three trim runs' records,
+                summaries and reports agree; the CPU phase holds them, and
+                qc's merged count tables, against the same command lines
+                without the worker options on ``--device cpu``
 28. ``kmer_ops``  the k-mer count op on the card against ``np.unique`` at
                 ``KMER_HOLD_CODES`` codes and k of ``KMER_HOLD_KS``, the
                 intersection op at M x R = 256 and at the known path's shape
@@ -160,13 +186,15 @@ object a line:
                 ``insert_kernel.WORD_OPS`` a word and
                 ``insert_kernel.DIAGONAL_OPS`` a diagonal; for
                 ``dp_locate_word32`` and ``diag_counts_u8`` also their
-                launches on the engine paths (``engine_launches``), for
+                launches on the engine paths (``engine_launches``) and each
+                rank's on the rank paths (``rank_launches``), for
                 ``diag_counts_u8`` also on ``pe_correct_path``
                 (``correct_path_launches``)
 31. the last line: ``{"ok": true, "device": {...}}``
 
-Every path whose output the card makes also runs on ``--device cpu`` for a
-prefix of its input (``CPU_CHECK_RECORDS``: ``(DEPTH + 2) x MAX_BATCH`` =
+Every path whose output the card makes (but the rank paths, which are held
+to the one-process card runs of the same command lines) also runs on
+``--device cpu`` for a prefix of its input (``CPU_CHECK_RECORDS``: ``(DEPTH + 2) x MAX_BATCH`` =
 163,840 reads of the main path and pairs of ``pe_insert_path``, whose
 prefixes reach the batches that reuse pinned slots; two batches, 65,536
 reads or pairs, of the other turbo paths and of qc; 32,768 records of each
@@ -279,6 +307,16 @@ DETECT_KNOWN_READS = 4000
 DETECT_KHMER_READS = 10000
 PE_DETECT_PAIRS = 2000
 ERROR_RECORDS = 10000  # error's default --max-reads, single-end and paired
+# pairs of the 2x150 input that ranks_pe_path trims in two ranks, cut from
+# 1,000,000 to keep the added time small
+RANK_PAIRS = 500000
+# reads of the main path's prefix that threads_path runs with --threads (cut
+# from the 100,000 that would do: a --threads run's wall is mostly its
+# workers' start and the writer's polls, as in the reference), all run again
+# on the CPU without the worker options
+THREADS_READS = 20000
+# batches of threads_path's qc run, so that both of its workers take some
+QC_THREADS_BATCHES = 10
 # codes of the hold of the k-mer count op, at k = 12, 13 and 21: both sides
 # of the op's threshold, and two large corpora
 KMER_HOLD_CODES = (1 << 14, (1 << 14) + 1, 1 << 20, 1 << 24)
@@ -1082,6 +1120,9 @@ def phase_main_path(work, made, n_reads, runs):
     tail = ["--quiet", "--no-cache-adapters", "--report-file", os.path.join(work, "report.txt")]
     argv = ["trim", "-a", TRUSEQ, "-se", fastq, "-o", out] + tail
     seconds, counts, run = run_trim(argv, "cuda")
+    # the first run's report, which ranks_se_path holds its merged report to
+    # (a later run numbers the unnamed adapter on)
+    shutil.copyfile(tail[-1], os.path.join(work, "main_report.txt"))
     # further runs of the same command, for the spread of the host's clock
     repeats = [run_trim(argv, "cuda")[0] for _ in range(runs - 1)]
 
@@ -1101,10 +1142,10 @@ def phase_main_path(work, made, n_reads, runs):
     trimmed = int((lengths < 150).sum())
 
     # the first DEPTH + 2 batches again on the CPU (in the CPU phase): a
-    # byte-identical prefix
+    # byte-identical prefix; the card's output is cut to it after
+    # ranks_se_path
     records = CPU_CHECK_RECORDS["main_path"]
     prefix = write_prefix(fastq, records, os.path.join(work, "main_prefix.fastq"))
-    keep_card_prefix(out, records)
     cpu_out = os.path.join(work, "trimmed_cpu.fastq")
     defer_cpu("main_path", [dict(
         argv=["trim", "-a", TRUSEQ, "-se", prefix, "-o", cpu_out,
@@ -1138,7 +1179,7 @@ def phase_main_path(work, made, n_reads, runs):
             },
         }
     })
-    return launches, fastq
+    return launches, fastq, out
 
 
 def time_device_step(fastq, work, launches=20):
@@ -1620,6 +1661,16 @@ def _report_sections(path):
 SUMMARY_KEYS = ("pre", "post", "trim", "detect", "errorrate")
 
 
+def count_tables(value):
+    """A summary's additive parts: every count table and record count,
+    without each histogram's derived statistics (its "summary"), which the
+    merge of several ``--threads`` workers adds, as in the reference
+    (ROADMAP.md queue 3 item 14)."""
+    if isinstance(value, dict):
+        return {key: count_tables(item) for key, item in value.items() if key != "summary"}
+    return value
+
+
 def report_at(argv):
     """The index in ``argv`` of the report's path: ``--report-file``'s of
     trim, ``-o``'s of qc, detect and error."""
@@ -1697,6 +1748,7 @@ CPU_CHECK_RECORDS = {
     "detect_khmer_path": DETECT_KHMER_READS,
     "pe_detect_check": PE_DETECT_PAIRS,
     "error_path": ERROR_RECORDS,
+    "threads_path": THREADS_READS,
 }
 #: the CPU checks the card phases left for the CPU phase
 CPU_PENDING = []
@@ -1721,7 +1773,8 @@ def defer_cpu(tag, runs):
     [(CPU output, the card's output or its kept prefix, the card's prefix
     run's output or None)], and what the CPU's run must give: ``mode``
     ("turbo" unless given), ``expect`` (fields of the turbo runner's
-    record), ``summary`` and ``report_sections`` (the card's prefix run's),
+    record), ``summary`` and ``report_sections`` (the card's prefix run's;
+    with ``counts_only``, ``summary`` alone, as :func:`count_tables`),
     ``run_equal`` (fields of the card's prefix run's record), ``whole``
     (the card's outputs are whole, not prefixes), ``per_record`` (the
     records the pipeline runs without an engine: 0 unless given, and
@@ -1773,7 +1826,10 @@ def compare_cpu_run(tag, spec, res):
         check(res["run"][key] == value, (tag, key, res["run"][key], value))
     for key, value in spec.get("run_equal", {}).items():
         check(res["run"][key] == value > 0, (tag, key, res["run"][key], value))
-    if "summary" in spec:
+    if spec.get("counts_only"):
+        check(count_tables(res["summary"]) == spec["summary"],
+              tag + ": the card's and the CPU's count tables differ")
+    elif "summary" in spec:
         check(res["summary"] == spec["summary"],
               tag + ": the card's and the CPU's summaries differ on the prefix")
         check(res["report_sections"] == spec["report_sections"],
@@ -1832,7 +1888,7 @@ CPU_CHECK_SECONDS = {
     "se_fastaqual_engine_path": 25, "pe_engine_insert_check": 13,
     "detect_path": 8, "pe_detect_check": 7, "detect_known_path": 7,
     "se_stats_serial_check": 4, "detect_khmer_path": 3, "pe_qc_path": 1, "qc_path": 1,
-    "error_path": 1,
+    "error_path": 1, "threads_path": 12,
 }
 
 
@@ -3082,6 +3138,347 @@ def time_pair_step(pair, kernel, step_args, launches=20):
     return result, (ref_T, query_T, m_col)
 
 
+# -- the multi-process ranks and --threads ------------------------------------
+
+
+def rank_child(rank, world, port, argv, results):
+    """One rank of :func:`run_ranks`, in a spawned process: join the Gloo
+    group, run ``argv`` through the port's entry point on card 0 with the
+    launch counts set to 0 just before, and put (rank, its seconds, counts
+    and the turbo runner's record, or the error's text) on ``results``."""
+    from atropos_tpu_torch.parallel import distributed
+
+    try:
+        distributed.initialize("localhost:{}".format(port), world, rank)
+        seconds, counts, run = run_trim(argv, torch.device("cuda", 0))
+        results.put((rank, dict(seconds=seconds, counts=counts, run=run)))
+    except Exception:  # the parent raises it
+        import traceback
+
+        results.put((rank, {"error": traceback.format_exc()}))
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(argv, world=2):
+    """``argv`` in ``world`` ranks on the one card, spawned processes
+    joined over localhost; returns each rank's result (:func:`rank_child`)
+    and the wall time from the first start to the last result. Every rank
+    is joined or stopped before this returns."""
+    import queue
+
+    context = multiprocessing.get_context("spawn")
+    results = context.Queue()
+    port = free_port()
+    processes = [context.Process(target=rank_child, args=(rank, world, port, argv, results))
+                 for rank in range(world)]
+    began = time.perf_counter()
+    got = {}
+    try:
+        for process in processes:
+            process.start()
+        while len(got) < world:
+            try:
+                rank, result = results.get(timeout=5)
+            except queue.Empty:
+                check(all(process.is_alive() for process in processes),
+                      "a rank ended without its result")
+                continue
+            check("error" not in result, result.get("error"))
+            got[rank] = result
+        wall = time.perf_counter() - began
+    finally:
+        for process in processes:
+            process.join(timeout=60)
+            if process.is_alive():
+                process.terminate()
+                process.join()
+    return [got[rank] for rank in range(world)], wall
+
+
+def record_ends(data):
+    """The end offset of each four-line record of a FASTQ ``data``."""
+    newlines = np.flatnonzero(np.frombuffer(data, np.uint8) == 10)
+    check(newlines.size % 4 == 0, "a FASTQ output of whole records")
+    return newlines[3::4] + 1
+
+
+def record_ids(data, ends):
+    """The 8-digit numbers that start each record's name (``@%08d``)."""
+    starts = np.concatenate([[0], ends[:-1]])
+    digits = np.frombuffer(data, np.uint8)[starts[:, None] + np.arange(1, 9)] - 48
+    return (digits * 10 ** np.arange(7, -1, -1)).sum(axis=1)
+
+
+def check_shards(shards, single, results):
+    """The ranks' ``.{rank}`` shards of one output against the one-process
+    run's output ``single``: their records disjoint, and laid out in the
+    order of the chunks (pair batches) each rank's runner says it owned,
+    the one-process output byte for byte. Removes the shards. Returns the
+    records of each shard."""
+    pieces, ids, counts = {}, [], []
+    for rank, (path, result) in enumerate(zip(shards, results)):
+        with open(path, "rb") as handle:
+            data = handle.read()
+        os.remove(path)
+        ends = record_ends(data)
+        ids.append(record_ids(data, ends))
+        counts.append(int(ends.size))
+        at, start = 0, 0
+        for index, count in result["run"]["owned"]:
+            check(index % len(shards) == rank, (rank, index))
+            stop = int(ends[at + count - 1]) if count else start
+            pieces[index] = (data, start, stop)
+            at, start = at + count, stop
+        check(at == ends.size, (path, at, ends.size))
+    check(np.intersect1d(ids[0], ids[1]).size == 0, "a record in two shards")
+    check(sorted(pieces) == list(range(len(pieces))), sorted(pieces))
+    with open(single, "rb") as handle:
+        whole = handle.read()
+    cursor = 0
+    for index in sorted(pieces):
+        data, start, stop = pieces[index]
+        check(whole[cursor : cursor + stop - start] == data[start:stop],
+              "the shards differ from the one-process output at unit {}".format(index))
+        cursor += stop - start
+    check(cursor == len(whole), (single, cursor, len(whole)))
+    return counts
+
+
+def rank_record(results, wall, unit, kernels):
+    """What a rank path prints: each rank's seconds, rate, launches and
+    the split of its run's seconds."""
+    return {
+        "seconds_from_start_to_last_result": wall,
+        "ranks": [{
+            "rank": rank, unit: result["run"][unit], "seconds": result["seconds"],
+            unit + "_per_second": result["run"][unit] / result["seconds"],
+            "owned": len(result["run"]["owned"]), "batches": result["run"]["batches"],
+            "launches": {name: result["counts"][name] for name in kernels},
+            # where each rank's threads spent the run (the runner's record)
+            "split_seconds": {key: value for key, value in result["run"].items()
+                              if key.endswith("_seconds")},
+        } for rank, result in enumerate(results)],
+    }
+
+
+def phase_ranks_se(work, fastq, single_out, single_report, n_reads):
+    """The main path's command line in two ranks on the one card (Gloo over
+    localhost): each rank trims the chunks whose index is its rank modulo
+    two into its ``.{rank}`` shard with ``dp_locate_word32``, and rank 0
+    writes the report of the merged summaries, which must be the
+    one-process run's from its trimming section on."""
+    out = os.path.join(work, "ranks.fastq")
+    report = os.path.join(work, "ranks_report.txt")
+    argv = ["trim", "-a", TRUSEQ, "-se", fastq, "-o", out, "--quiet", "--no-cache-adapters",
+            "--report-file", report]
+    results, wall = run_ranks(argv)
+    for result in results:
+        run, counts = result["run"], result["counts"]
+        check(run["device"].startswith("cuda") and len(run["owned"]) > 1, run)
+        check(counts["dp_locate_word32"] == run["batches"] * run["device_aligners"] > 0,
+              (counts, run))
+    check(sum(result["run"]["reads"] for result in results) == n_reads, "reads of the ranks")
+    check(not os.path.exists(out), "a rank wrote the unsuffixed output")
+    counts = check_shards([os.path.join(work, "ranks.{}.fastq".format(rank)) for rank in (0, 1)],
+                          single_out, results)
+    check(_report_sections(report) == _report_sections(single_report),
+          "the merged report differs from the one-process report")
+    record = rank_record(results, wall, "reads", ("dp_locate_word32",))
+    record.update(argv="trim -a TRUSEQ -se reads.fastq -o ranks.fastq (2 ranks, Gloo)",
+                  shard_records=counts)
+    return record
+
+
+
+def phase_ranks_pe(work, inputs):
+    """``pe_insert_path``'s command line on its first ``RANK_PAIRS`` pairs,
+    once in this process and once in two ranks on the one card, which own
+    the pair batches whose index is their rank modulo two and launch
+    ``diag_counts_u8``: the shards of both mates against the one-process
+    outputs, the merged report against the one-process report."""
+    def argv(tag):
+        outs = [os.path.join(work, "{}.{}.fastq".format(tag, mate)) for mate in (1, 2)]
+        return pe_argv("insert", *inputs, *outs, work, report=tag + "_report.txt",
+                       named=True) + [
+            "--max-reads", str(RANK_PAIRS)], outs
+
+    single_argv, single_outs = argv("rank_single")
+    seconds, counts, run = run_trim(single_argv, "cuda")
+    check(run["pairs"] == RANK_PAIRS and counts["diag_counts_u8"] > 0, (counts, run))
+    ranks_argv, outs = argv("ranks_pe")
+    results, wall = run_ranks(ranks_argv)
+    for result in results:
+        run, counts = result["run"], result["counts"]
+        check(run["device"].startswith("cuda") and len(run["owned"]) > 1, run)
+        check(counts["diag_counts_u8"] == run["batches"] > 0, (counts, run))
+    check(sum(result["run"]["pairs"] for result in results) == RANK_PAIRS, "pairs of the ranks")
+    shard_records = []
+    for out, single in zip(outs, single_outs):
+        stem, ext = os.path.splitext(out)
+        shard_records.append(check_shards(
+            ["{}.{}{}".format(stem, rank, ext) for rank in (0, 1)], single, results))
+        os.remove(single)
+    check(_report_sections(os.path.join(work, "ranks_pe_report.txt"))
+          == _report_sections(os.path.join(work, "rank_single_report.txt")),
+          "the merged report differs from the one-process report")
+    record = rank_record(results, wall, "pairs", ("diag_counts_u8", "dp_locate_word32"))
+    record.update(argv="trim --aligner insert -a TRUSEQ -A TRUSEQ2 -pe1 -pe2 -o -p "
+                       "--max-reads {} (2 ranks, Gloo)".format(RANK_PAIRS),
+                  pairs=RANK_PAIRS, one_process_seconds=seconds, shard_records=shard_records)
+    return record
+
+
+#: the --threads command lines of ``threads_path``: (name, the options)
+THREADS_RUNS = (
+    ("writer_process", ["--threads", "3"]),
+    ("no_writer_process", ["--threads", "3", "--no-writer-process"]),
+    ("preserve_order", ["--threads", "3", "--preserve-order"]),
+)
+
+
+def sorted_records(paths):
+    records = []
+    for path in paths:
+        with open(path, "rb") as handle:
+            lines = handle.read().split(b"\n")
+        records += [b"\n".join(lines[i : i + 4]) for i in range(0, len(lines) - 1, 4)]
+    return sorted(records)
+
+
+def run_cli(argv, report):
+    """Start ``python -m atropos_tpu_torch ARGV`` (the user's entry point,
+    on the card by default) in a process of its own, its report written
+    as text and JSON to ``report`` + ``.txt`` and ``.json``, its standard
+    error to ``report`` + ``.err``."""
+    import subprocess
+
+    with open(report + ".err", "w") as err:
+        process = subprocess.Popen(
+            [sys.executable, "-m", "atropos_tpu_torch"] + argv
+            + ["--report-formats", "txt", "json"],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err,
+        )
+    return process, report
+
+
+def finish_cli(started, began, timeout=600):
+    """Wait for every run of :func:`run_cli` in ``started``; each run's
+    summary (the JSON report) and its seconds from ``began`` to its end.
+    A run still going at ``timeout`` is stopped, and so is every run when
+    one fails."""
+    ends = {}
+    try:
+        while len(ends) < len(started):
+            for i, (process, _) in enumerate(started):
+                if i not in ends and process.poll() is not None:
+                    ends[i] = time.perf_counter() - began
+            check(time.perf_counter() - began < timeout, "a --threads run hangs")
+            time.sleep(0.05)
+    finally:
+        for process, _ in started:
+            if process.poll() is None:
+                process.kill()
+                process.wait()
+    summaries = []
+    for process, report in started:
+        with open(report + ".err") as handle:
+            check(process.returncode == 0, handle.read()[-3000:])
+        with open(report + ".json") as handle:
+            summary = json.load(handle)
+        check("exception" not in summary, summary.get("exception"))
+        summaries.append(summary)
+    return summaries, [ends[i] for i in range(len(started))]
+
+
+def phase_threads(work):
+    """``trim --threads 3`` (the writer process, ``--no-writer-process``'s
+    ``.N`` shards, ``--preserve-order``) and ``qc --threads 2`` (in
+    ``QC_THREADS_BATCHES`` batches) on the main path's first
+    ``THREADS_READS`` reads, the four command lines at once,
+    each through ``python -m atropos_tpu_torch`` in a process of its own:
+    spawned workers running the per-record pipeline without an engine, as
+    in the reference. The trim workers launch no kernel and do no device
+    work; qc's workers count their positions on the card. The three trim
+    runs' records and summaries must agree; in the CPU phase the same
+    command lines without the worker options on ``--device cpu`` (the turbo
+    runner, qc's native route) must give the ordered output byte for byte
+    and the same summaries and reports, and qc's the same count tables and
+    record counts: the merge of several workers adds each histogram's
+    derived statistics, as in the reference (ROADMAP.md queue 3 item
+    14)."""
+    prefix = write_prefix(os.path.join(work, "main_prefix.fastq"), THREADS_READS,
+                          os.path.join(work, "threads_in.fastq"))
+    folder = os.path.join(work, "threads")
+    os.makedirs(folder)
+
+    def trim_argv(out, report):
+        return ["trim", "-a", "truseq=" + TRUSEQ, "-se", prefix, "-o", out, "--quiet",
+                "--no-cache-adapters", "--report-file", report]
+
+    began = time.perf_counter()
+    started = [
+        run_cli(trim_argv(os.path.join(folder, name + ".fastq"), os.path.join(folder, name))
+                + extra, os.path.join(folder, name))
+        for name, extra in THREADS_RUNS
+    ]
+    # qc in QC_THREADS_BATCHES batches, which both workers take
+    qc_argv = ["qc", "-se", prefix, "--batch-size",
+               str(THREADS_READS // QC_THREADS_BATCHES), "--quiet"]
+    qc_report = os.path.join(folder, "qc")
+    started.append(run_cli(qc_argv + ["-o", qc_report, "--threads", "2"], qc_report))
+    summaries, seconds = finish_cli(started, began)
+    records, sections, reports = [], [], []
+    for (name, extra), summary in zip(THREADS_RUNS, summaries):
+        check(summary["mode"] == "parallel" and summary["threads"] == 3, summary["mode"])
+        check(summary["device"].startswith("cuda"), summary["device"])
+        check(summary["total_record_count"] == THREADS_READS, "threads reads")
+        out = os.path.join(folder, name + ".fastq")
+        if name == "no_writer_process":
+            stem, ext = os.path.splitext(out)
+            paths = [p for p in ("{}.{}{}".format(stem, i, ext) for i in range(3))
+                     if os.path.exists(p)]
+            check(paths and not os.path.exists(out), paths)
+            shard_files = len(paths)
+        else:
+            paths = [out]
+        records.append(sorted_records(paths))
+        sections.append({key: _plain_json(summary.get(key)) for key in SUMMARY_KEYS})
+        reports.append(_report_sections(os.path.join(folder, name + ".txt")))
+    check(records[0] == records[1] == records[2], "the --threads runs' records differ")
+    check(sections[0] == sections[1] == sections[2], "the --threads runs' summaries differ")
+    check(reports[0] == reports[1] == reports[2], "the --threads runs' reports differ")
+    qc = summaries[-1]
+    check(qc["mode"] == "parallel" and qc["threads"] == 2, qc["mode"])
+    check(qc["total_record_count"] == THREADS_READS, "qc threads reads")
+    cpu_out = os.path.join(folder, "cpu.fastq")
+    defer_cpu("threads_path", [
+        dict(argv=trim_argv(cpu_out, os.path.join(folder, "cpu.txt")),
+             outs=[(cpu_out, os.path.join(folder, "preserve_order.fastq"), None)],
+             whole=True, summary=sections[2], report_sections=reports[2]),
+        dict(argv=qc_argv + ["-o", os.path.join(folder, "cpu_qc.txt")], outs=[],
+             counts_only=True,
+             summary=count_tables({key: _plain_json(qc.get(key)) for key in SUMMARY_KEYS})),
+    ])
+    return {
+        "argv": "trim -a truseq=TRUSEQ -se IN -o OUT --threads 3 [--no-writer-process | "
+                "--preserve-order]; qc -se IN --batch-size {} -o OUT --threads 2 "
+                "(all four at once)".format(THREADS_READS // QC_THREADS_BATCHES),
+        "reads": THREADS_READS, "seconds": max(seconds),
+        "seconds_of_each_process": dict(zip([name for name, _ in THREADS_RUNS] + ["qc"],
+                                            seconds)),
+        "no_writer_process_shard_files": shard_files,
+        "host_only": "the trim workers: no kernel, no device op; "
+                     "qc's workers count their positions on the card",
+    }
+
+
 # -- goldens ---------------------------------------------------------------------
 
 #: single-end cases: (parameters, golden, input, [(file written, golden)]);
@@ -3319,9 +3716,14 @@ def main():
         finally:
             made = finish_inputs(writing)
         mark("build and inputs")
-        word32_launches, fastq = phase_main_path(
+        word32_launches, fastq, main_out = phase_main_path(
             work, made["main_path"], args.reads, args.main_path_runs
         )
+        ranks_se = phase_ranks_se(work, fastq, main_out, os.path.join(work, "main_report.txt"),
+                                  args.reads)
+        emit({"ranks_se_path": ranks_se})
+        keep_card_prefix(main_out, CPU_CHECK_RECORDS["main_path"])
+        mark("main path and ranks_se_path")
         reads, lengths = truseq_batch(fastq)
         truseq = CudaAligner(TRUSEQ, 0.1, BACK, min_overlap=3, device=DEVICE)
         check(
@@ -3353,6 +3755,9 @@ def main():
         emit({"pe_adapter_path": phase_pe_adapter(work, inputs, PAIRS)})
         emit({"pe_side_path": phase_pe_side(work, inputs, PAIRS)})
         mark("turbo paths, first part")
+        ranks_pe = phase_ranks_pe(work, inputs)
+        emit({"ranks_pe_path": ranks_pe})
+        mark("ranks_pe_path")
         pe_correct = phase_pe_correct(work, inputs, PAIRS)
         emit({"pe_correct_path": pe_correct})
         mark("pe_correct_path")
@@ -3378,6 +3783,8 @@ def main():
         emit({"kmer_ops": phase_kmer_ops(
             args.seed, os.path.join(work, "detect_known_path.0.fastq"))})
         mark("qc, detect and error paths")
+        emit({"threads_path": phase_threads(work)})
+        mark("threads_path")
         for path in inputs:
             os.remove(path)
         emit({"pe_overwrite_path": phase_pe_overwrite(work, made["pe_overwrite_path"], PAIRS)})
@@ -3474,6 +3881,11 @@ def main():
             # insert check's insert run for the counts)
             check(engine_launches[kernel.name] > 0, (kernel.name, engine_launches))
             entry["engine_launches"] = engine_launches[kernel.name]
+        entry["rank_launches"] = {
+            tag: [rank["launches"][kernel.name] for rank in record["ranks"]]
+            for tag, record in (("ranks_se_path", ranks_se), ("ranks_pe_path", ranks_pe))
+            if kernel.name in record["ranks"][0]["launches"]
+        }
         if kernel is diag_counts_u8:
             # launches on the insert path with --correct-mismatches
             entry["correct_path_launches"] = pe_correct["launches"]["diag_counts_u8"]

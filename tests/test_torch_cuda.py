@@ -884,3 +884,99 @@ def test_qc_detect_error_on_the_card_equal_the_cpu(card, tmp_path, argv):
 
 def json_counts(counts):
     return {device: dict(kinds) for device, kinds in counts.items()}
+
+
+RANK = r"""
+import json, sys
+import torch
+from atropos_tpu_torch.__main__ import main
+from atropos_tpu_torch.align import cuda_kernel
+from atropos_tpu_torch.engine import turbo
+from atropos_tpu_torch.parallel import distributed
+
+rank, port, argv = int(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3])
+distributed.initialize("localhost:" + port, 2, rank)
+turbo.TurboTrimRunner.CHUNK_BYTES = 65536
+cuda_kernel.reset_launch_counts()
+assert main(argv, device=torch.device("cuda", 0)) == 0
+print(json.dumps(dict(owned=turbo.LAST_RUN["owned"], device=turbo.LAST_RUN["device"],
+                      launches=cuda_kernel.launch_counts()["dp_locate_word32"])))
+"""
+
+
+def test_two_ranks_on_the_card_equal_one_process(card, tmp_path):
+    """Two Gloo ranks on the one card, each trimming the chunks it owns
+    into its shard with ``dp_locate_word32``: the shards in chunk order are
+    the one-process run's output, and rank 0's report of the merged
+    summaries is the one-process report from its trimming section on."""
+    import socket
+    import subprocess
+    import sys
+
+    from atropos_tpu_torch.__main__ import main
+
+    rng = np.random.default_rng(11)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    ad = np.frombuffer(TRUSEQ.encode(), np.uint8)
+    path = str(tmp_path / "in.fastq")
+    with open(path, "wb") as out:
+        for i in range(4000):
+            seq = bases[rng.integers(0, 4, 150)]
+            at = int(rng.integers(0, 150))
+            if i % 2:
+                take = min(len(ad), 150 - at)
+                seq[at : at + take] = ad[:take]
+            out.write(b"@r%d\n%s\n+\n%s\n" % (i, seq.tobytes(), b"I" * 150))
+
+    def argv(out, report):
+        return ["trim", "-a", "ad=" + TRUSEQ, "-se", path, "-o", out, "--quiet",
+                "--no-cache-adapters", "--report-file", report]
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ranks = str(tmp_path / "ranks.fastq")
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", RANK, str(rank), port,
+             json.dumps(argv(ranks, str(tmp_path / "ranks.txt")))],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for rank in range(2)
+    ]
+    results = []
+    try:
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=600)
+            assert proc.returncode == 0, stderr[-3000:]
+            results.append(json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    one = str(tmp_path / "one.fastq")
+    assert main(argv(one, str(tmp_path / "one.txt")), device="cuda") == 0
+
+    chunks = {}
+    for rank, result in enumerate(results):
+        assert result["device"].startswith("cuda") and result["launches"] > 0
+        assert len(result["owned"]) > 1
+        with open(str(tmp_path / "ranks.{}.fastq".format(rank)), "rb") as handle:
+            lines = handle.read().split(b"\n")
+        records = [b"\n".join(lines[i : i + 4]) + b"\n" for i in range(0, len(lines) - 1, 4)]
+        at = 0
+        for index, count in result["owned"]:
+            assert index % 2 == rank
+            chunks[index] = b"".join(records[at : at + count])
+            at += count
+        assert at == len(records)
+    with open(one, "rb") as handle:
+        assert b"".join(chunks[i] for i in sorted(chunks)) == handle.read()
+    sections = []
+    for report in ("ranks.txt", "one.txt"):
+        with open(str(tmp_path / report)) as handle:
+            text = handle.read()
+        sections.append(text[text.index("--------\nTrimming"):])
+    assert sections[0] == sections[1]

@@ -164,6 +164,8 @@ CPU_CHECKS = {
     # record of their inputs
     "qc_path": 65536, "pe_qc_path": 65536, "detect_path": 1000, "detect_known_path": 4000,
     "detect_khmer_path": 10000, "pe_detect_check": 2000, "error_path": 10000,
+    # --threads: the main path's first 20,000 reads without the worker options
+    "threads_path": 20000,
 }
 
 

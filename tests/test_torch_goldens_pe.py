@@ -5,20 +5,24 @@ line and the aligners the reference runs it with. The ported cases go
 through ``atropos_tpu_torch`` on ``cpu`` and must reproduce
 ``tests/conformance/expected/`` byte for byte: through the turbo paired
 runner, or, where the turbo runner declines (``SERIAL``), through the
-per-record pipeline and its batched engine. The others (``--threads``)
-must raise ``NotPortedError`` naming their ROADMAP.md queue item, before
-any output is written.
+per-record pipeline and its batched engine. The cases of ``--threads``
+(``THREADED``) run through the spawned workers (summary ``mode``
+"parallel") and are held as the reference's own tests hold them: the
+workers' ``.N`` shards together, or the outputs of the writer process,
+against the golden files' records, the summary's counts, and empty gzip
+outputs of an empty input.
 
 The case table imports nothing but the port, so that ``chip_smoke.py``
 runs the same ported cases on the card.
 """
+import gzip
 import os
 import shutil
 
 import pytest
 
-from atropos_tpu_torch import ROADMAP_ITEMS, NotPortedError
 from atropos_tpu_torch.commands import execute_cli, get_command
+from atropos_tpu_torch.commands.trim.writers import add_suffix_to_path
 
 CONFORMANCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "conformance")
 
@@ -111,12 +115,8 @@ CASES = [
   "empty.fastq", "empty.fastq.gz", "empty.fastq.gz", ADAPTER),
 ]
 
-#: cases outside the slice -> the topic of the ROADMAP.md item they wait for
-NOT_PORTED = {
-    "no_writer_process": "multi-gpu",
-    "summary_threads": "multi-gpu",
-    "issue122_empty_gz_outputs": "multi-gpu",
-}
+#: the cases of ``--threads``: spawned workers, summary ``mode`` "parallel"
+THREADED = ("no_writer_process", "summary_threads", "issue122_empty_gz_outputs")
 
 #: ported cases that the turbo runner declines: they run through the
 #: per-record pipeline and its batched engine (``mode`` "serial")
@@ -147,8 +147,8 @@ def _expand(cases):
     ]
 
 
-PORTED = _expand(c for c in CASES if c[0] not in NOT_PORTED)
-UNPORTED = _expand(c for c in CASES if c[0] in NOT_PORTED)
+PORTED = _expand(c for c in CASES if c[0] not in THREADED)
+PARALLEL = _expand(c for c in CASES if c[0] in THREADED)
 
 
 def _argv(params, aligner, in1, in2, exp1, exp2, tmp_path):
@@ -169,10 +169,10 @@ def _ids(cases):
 
 def test_case_table_is_complete():
     assert len({case[0] for case in CASES}) == len(CASES) == 23
-    assert set(NOT_PORTED) <= {case[0] for case in CASES}
-    assert set(NOT_PORTED.values()) <= set(ROADMAP_ITEMS)
+    assert set(THREADED) <= {case[0] for case in CASES}
     assert set(SERIAL) <= {case[0] for case in PORTED}
     assert len(PORTED) == 29
+    assert len(PARALLEL) == 5
 
 
 @pytest.mark.parametrize(
@@ -193,17 +193,63 @@ def test_golden(name, aligner, params, in1, in2, exp1, exp2, tmp_path):
         )
 
 
+def _records(path):
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as handle:
+        lines = handle.read().split(b"\n")
+    return sorted(tuple(lines[i : i + 4]) for i in range(0, len(lines) - 1, 4))
+
+
+#: the options of the worker runs, with their values
+THREAD_OPTIONS = {"--threads": 1, "--no-writer-process": 0, "--batch-size": 1,
+                  "--preserve-order": 0}
+
+
 @pytest.mark.parametrize(
-    "name,aligner,params,in1,in2,exp1,exp2", UNPORTED, ids=_ids(UNPORTED)
+    "name,aligner,params,in1,in2,exp1,exp2", PARALLEL, ids=_ids(PARALLEL)
 )
-def test_outside_the_slice_raises(name, aligner, params, in1, in2, exp1, exp2,
-                                  tmp_path):
+def test_threads_golden(name, aligner, params, in1, in2, exp1, exp2, tmp_path):
+    """The checks of the reference's own tests of these cases
+    (``tests/test_trim_pe.py``, which compare no golden file but the empty
+    gzip outputs), and the records of the outputs, or of the workers'
+    shards together, against those of the same command line without the
+    worker options in one process (a turbo run)."""
     argv, out1, out2 = _argv(params, aligner, in1, in2, exp1, exp2, tmp_path)
-    with pytest.raises(NotPortedError) as err:
-        get_command("trim").execute(argv, device="cpu")
-    assert err.value.topic == NOT_PORTED[name]
-    assert ROADMAP_ITEMS[NOT_PORTED[name]] in str(err.value)
-    assert not os.path.exists(out1) and not os.path.exists(out2)
+    retcode, summary = get_command("trim").execute(argv, device="cpu")
+    assert "exception" not in summary, summary.get("exception")
+    assert retcode == 0
+    assert summary["mode"] == "parallel" and summary["device"] == "cpu"
+    threads = int(argv[argv.index("--threads") + 1])
+    assert summary["threads"] == threads
+    if name == "issue122_empty_gz_outputs":
+        for out in (out1, out2):
+            with gzip.open(out) as gz:
+                assert gz.read() == b""
+        return
+    assert summary["record_counts"] == {0: 100}
+    assert summary["bp_counts"] == {0: [12500, 12500]}
+    assert summary["timing"]["wallclock"] > 0
+    one = []
+    skip = 0
+    for arg in argv:
+        if skip:
+            skip -= 1
+        elif arg in THREAD_OPTIONS:
+            skip = THREAD_OPTIONS[arg]
+        else:
+            one.append(arg.replace("tmp1-", "one1-").replace("tmp2-", "one2-"))
+    retcode, single = get_command("trim").execute(one, device="cpu")
+    assert retcode == 0 and single["mode"] == "turbo"
+    for out in (out1, out2):
+        if name == "no_writer_process":
+            shards = [add_suffix_to_path(out, ".{}".format(i)) for i in range(threads)]
+            assert not os.path.exists(out)
+            assert sum(os.path.exists(shard) for shard in shards) >= 1
+            got = sorted(r for shard in shards if os.path.exists(shard)
+                         for r in _records(shard))
+        else:
+            got = _records(out)
+        assert got == _records(out.replace("tmp1-", "one1-").replace("tmp2-", "one2-"))
 
 
 @pytest.mark.parametrize("aligner", BOTH)

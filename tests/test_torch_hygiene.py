@@ -451,15 +451,28 @@ def test_other_commands_without_a_card_raise(command, tmp_path):
     assert not os.path.exists(str(tmp_path / "out.txt"))
 
 
-def test_qc_threads_is_not_ported(tmp_path):
-    from atropos_tpu_torch import NotPortedError
-    from atropos_tpu_torch.__main__ import main
+def test_qc_threads_matches_the_reference(tmp_path):
+    """``qc --threads 2`` runs in spawned workers in both packages, with
+    the same summary and report."""
+    from atropos_tpu import commands as jax_commands
+    from atropos_tpu_torch import commands as port_commands
 
-    with pytest.raises(NotPortedError) as err:
-        main(_command_argv("qc", tmp_path) + ["--threads", "2"], device="cpu")
-    assert err.value.topic == "multi-gpu"
-    assert "ROADMAP.md queue 1 item 7" in str(err.value)
-    assert not os.path.exists(str(tmp_path / "out.txt"))
+    from .test_torch_commands import HEADER, _comparable
+
+    argv = _command_argv("qc", tmp_path)[1:] + ["--threads", "2"]
+    report = str(tmp_path / "out.txt")
+    results = []
+    for which in ("jax", "port"):
+        if which == "jax":
+            retcode, summary = jax_commands.get_command("qc").execute(argv)
+        else:
+            retcode, summary = port_commands.get_command("qc").execute(argv, device="cpu")
+        assert retcode == 0 and summary["mode"] == "parallel" and summary["threads"] == 2
+        with open(report) as handle:
+            lines = [line for line in handle.read().splitlines() if not HEADER.search(line)]
+        os.remove(report)
+        results.append((_comparable(summary), lines))
+    assert results[0] == results[1]
 
 
 #: configurations of the single-end and paired-end slices that the turbo
@@ -578,17 +591,27 @@ def test_formerly_outside_the_slice_match_the_reference(tmp_path, extra, mode):
     assert results[0] == results[1]
 
 
-@pytest.mark.parametrize("extra,topic", [
-    (["-se", "small.fastq", "--threads", "2"], "multi-gpu"),
-])
-def test_options_outside_the_slice_raise(tmp_path, extra, topic):
-    from atropos_tpu_torch import ROADMAP_ITEMS, NotPortedError
-    from atropos_tpu_torch.__main__ import main
+@pytest.mark.parametrize("extra", [["-se", "small.fastq", "--threads", "2"]])
+def test_threads_argv_matches_the_reference(tmp_path, extra):
+    """``trim --threads 2`` runs in spawned workers in both packages, with
+    the same bytes and summary."""
+    from atropos_tpu import commands as jax_commands
+    from atropos_tpu_torch import commands as port_commands
+
+    from .test_torch_turbo_se import _comparable
 
     argv, out = _slice_argv(extra, tmp_path)
-    with pytest.raises(NotPortedError) as err:
-        main(argv, device="cpu")
-    assert err.value.topic == topic
-    assert ROADMAP_ITEMS[topic] in str(err.value)
-    assert not os.path.exists(out)
-    assert not os.path.exists(str(tmp_path / "report.txt"))
+    results = []
+    for which in ("jax", "port"):
+        if os.path.exists(out):
+            os.remove(out)
+        if which == "jax":
+            retcode, summary = jax_commands.get_command("trim").execute(argv[1:])
+        else:
+            retcode, summary = port_commands.get_command("trim").execute(
+                argv[1:], device="cpu"
+            )
+        assert retcode == 0 and summary["mode"] == "parallel" and summary["threads"] == 2
+        with open(out, "rb") as handle:
+            results.append((handle.read(), _comparable(summary)))
+    assert results[0] == results[1]
